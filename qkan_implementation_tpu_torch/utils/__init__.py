@@ -1,0 +1,13 @@
+"""Device selection and parameter conversion.
+
+The JAX package's metrics, profiling and checkpoint helpers are not
+ported yet (ROADMAP.md).
+"""
+
+from qkan_implementation_tpu_torch.utils.convert import (
+    params_from_numpy,
+    params_to_numpy,
+)
+from qkan_implementation_tpu_torch.utils.platform import resolve_device
+
+__all__ = ["params_from_numpy", "params_to_numpy", "resolve_device"]

@@ -1,0 +1,83 @@
+"""ops/chebyshev of the torch port against the JAX package, float64 on the
+CPU.  Both sides run the same recurrence / cos-arccos formula on the same
+numpy inputs, so the bar is 1e-12 (float64 rounding only)."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from qkan_implementation_tpu.ops import chebyshev as jax_cheb
+from qkan_implementation_tpu_torch.ops import chebyshev as torch_cheb
+
+TOL = 1e-12
+
+
+def _x(seed, shape, lo=-1.2, hi=1.2):
+    return np.random.default_rng(seed).uniform(lo, hi, shape)
+
+
+def _close(got: torch.Tensor, want):
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want), rtol=TOL, atol=TOL
+    )
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 5, 9])
+def test_chebyshev_t_and_transform_diagonal(degree):
+    x = _x(degree, (7, 5))
+    _close(
+        torch_cheb.chebyshev_t(torch.from_numpy(x), degree),
+        jax_cheb.chebyshev_t(jnp.asarray(x), degree),
+    )
+    _close(
+        torch_cheb.transform_diagonal(torch.from_numpy(x[0]), degree),
+        jax_cheb.transform_diagonal(jnp.asarray(x[0]), degree),
+    )
+
+
+@pytest.mark.parametrize("max_degree", [0, 1, 3, 7])
+@pytest.mark.parametrize("clip", [True, False])
+def test_chebyshev_basis(max_degree, clip):
+    x = _x(10 + max_degree, (6, 4))
+    got = torch_cheb.chebyshev_basis(torch.from_numpy(x), max_degree, clip)
+    assert got.shape == x.shape + (max_degree + 1,)
+    _close(got, jax_cheb.chebyshev_basis(jnp.asarray(x), max_degree, clip))
+
+
+def test_cumulative_transform_layout():
+    x = _x(3, (5, 3), -2.0, 2.0)  # unclipped by default: outside [-1, 1]
+    got = torch_cheb.cumulative_transform(torch.from_numpy(x), 4)
+    assert got.shape == (5, 3 * 5)
+    _close(got, jax_cheb.cumulative_transform(jnp.asarray(x), 4))
+
+
+def test_dilate_and_dilated_diag():
+    x = _x(4, (6,), -1.0, 1.0)
+    _close(
+        torch_cheb.dilate(torch.from_numpy(x), 3),
+        jax_cheb.dilate(jnp.asarray(x), 3),
+    )
+    _close(
+        torch_cheb.dilated_chebyshev_diag(torch.from_numpy(x), 4, 3),
+        jax_cheb.dilated_chebyshev_diag(jnp.asarray(x), 4, 3),
+    )
+
+
+def test_validation_contracts_match():
+    assert torch_cheb.UNIT_EPS == jax_cheb.UNIT_EPS
+    ok = torch.tensor([-1.0, 1.0 + 0.5 * torch_cheb.UNIT_EPS])
+    assert torch_cheb.check_unit_interval(ok) is ok
+    for bad in (torch.tensor([1.5]), np.array([-1.1])):
+        with pytest.raises(ValueError, match="between -1 and 1"):
+            torch_cheb.check_unit_interval(bad)
+        with pytest.raises(ValueError, match="between -1 and 1"):
+            jax_cheb.check_unit_interval(np.asarray(bad))
+    w = torch.tensor([0.5, -1.0])
+    assert torch_cheb.check_weight_magnitudes(w) is w
+    with pytest.raises(ValueError, match="unitarity"):
+        torch_cheb.check_weight_magnitudes(torch.tensor([2.0]))
+    for fn in (torch_cheb.chebyshev_t, torch_cheb.chebyshev_basis):
+        with pytest.raises(ValueError, match="non-negative"):
+            fn(torch.zeros(2), -1)
