@@ -1,13 +1,17 @@
-// Degree-wise fused FixedKAN layer forward for Hopper (sm_90a).
+// Fused FixedKAN layer forward for Hopper (sm_90a).
 //
-// Replaces the TPU kernel qkan_implementation_tpu/ops/fused_layer.py:
-// _fwd_kernel_degreewise (entry point kan_layer_fused_dw).  Computes
+// Replaces two TPU kernels of qkan_implementation_tpu/ops/fused_layer.py:
+// _fwd_kernel_degreewise (entry qkan_fused_dw_fwd, for kan_layer_fused_dw)
+// and _fwd_kernel (entry qkan_fused_fwd, for the v1 kan_layer_fused).
+// Both compute
 //
 //     out[b, c] = colsum(W_0)[c] + sum_{d>=1} sum_i T_d(t[b, i]) W_d[i, c]
 //     t = tanh(x) (or raw x),  T_d by the recurrence T_{d+1} = 2t T_d - T_{d-1}
 //
 // with w2 degree-major: W_d = w2[d*in : (d+1)*in, :].  The [B, dp1*in]
-// basis is never written to device memory.
+// basis is never written to device memory.  The v1 TPU kernel built the
+// whole basis tile in VMEM and ran one dot; that schedule was a TPU choice,
+// so the v1 entry shares this kernel and keeps only its rounding points.
 //
 // What bounds it on an H100: at the flagship layer 0 (B=4096, in=784,
 // dp1=6, T=10) one call reads x once (12.8 MB in f32) and does about
@@ -28,41 +32,38 @@
 // through shared memory, so the result is deterministic.  Each block owns
 // its rows: no reduction across blocks.
 //
-// T_0 term: colsum(W_0) exactly as the TPU kernel takes it (no products):
-// threads c < T add up column c of each staged W_0 chunk.
+// T_0 term: colsum(W_0) as the TPU kernels take it (no products): threads
+// c < T add up column c of each staged W_0 chunk.
 //
 // Precision.  round_bf16=0 ('high'/'default'): FP32 products and sums --
 // true f32 on CUDA cores, so the TPU's bf16x3 split has no counterpart.
-// round_bf16=1 ('bf16'): T_d and W_d (d >= 1) are rounded to bf16 before
-// each product, products and sums in f32; W_0's colsum stays f32.  With a
-// bf16 x, tanh and every recurrence op round to bf16, as torch does for a
-// bf16 tensor, one op at a time.
+// round_bf16=1 (degree-wise 'bf16'): T_d and W_d (d >= 1) are rounded to
+// bf16 before each product, products and sums in f32; W_0's colsum stays
+// f32.  With a bf16 x, tanh and every recurrence op round to bf16, as
+// torch does for a bf16 tensor, one op at a time.  The v1 entry with a
+// bf16 x rounds all of w2 to bf16, W_0 included (template flag W0R), as
+// _fwd_kernel casts w2 to the basis dtype; with an f32 x it is the
+// degree-wise 'high' path.
 //
 // Limits (checked by the Python wrapper): 1 <= dp1 <= 32, 1 <= T <= 64.
 
 #include <type_traits>
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "qkan_common.cuh"
 
 namespace {
+
+using qkan::bf16_round;
+using qkan::load_as_float;
 
 constexpr int ROWS = 32;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = ROWS * NWARPS;
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float load_as_float(const float* p) { return *p; }
-__device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // XT: x's element type; the recurrence rounds to it.  TP: T padded to a
-// multiple of 4 (the register accumulator count).  ROUND: 'bf16' mode.
-template <typename XT, int TP, bool ROUND>
+// multiple of 4 (the register accumulator count).  ROUND: round W_d (d >= 1)
+// and T_d to bf16.  W0R: round W_0 too (the v1 entry with a bf16 x).
+template <typename XT, int TP, bool ROUND, bool W0R>
 __global__ void __launch_bounds__(NTHREADS)
 fused_dw_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
                     float* __restrict__ out, int B, int in, int dp1, int T,
@@ -112,7 +113,7 @@ fused_dw_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
       float w = 0.f;
       if (i < in && c < T) {
         w = w2[((size_t)d * in + i) * T + c];
-        if (ROUND && d > 0) w = bf16_round(w);
+        if (ROUND && (W0R || d > 0)) w = bf16_round(w);
       }
       w_s[idx] = w;
     }
@@ -138,12 +139,7 @@ fused_dw_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
         }
         // (2t * T_d) - T_{d-1}, each op rounded as torch rounds it: no
         // contraction into one FMA
-        float nxt;
-        if (XBF16) {
-          nxt = bf16_round(__fsub_rn(bf16_round(__fmul_rn(2.f * t, cur)), prev));
-        } else {
-          nxt = __fsub_rn(__fmul_rn(2.f * t, cur), prev);
-        }
+        const float nxt = qkan::cheb_next<XBF16>(2.f * t, cur, prev);
         prev = cur;
         cur = nxt;
       }
@@ -168,7 +164,7 @@ fused_dw_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
   }
 }
 
-template <typename XT, int TP, bool ROUND>
+template <typename XT, int TP, bool ROUND, bool W0R>
 cudaError_t launch(const void* x, const float* w2, float* out, int B, int in,
                    int dp1, int T, int apply_tanh, cudaStream_t stream) {
   // widest chunk whose staging fits the budget; a multiple of NWARPS
@@ -185,7 +181,7 @@ cudaError_t launch(const void* x, const float* w2, float* out, int B, int in,
   const size_t red = (size_t)NWARPS * ROWS * (TP + 1);
   const size_t floats = (stage > red ? stage : red) + TP;
   const size_t bytes = floats * sizeof(float);
-  auto kernel = fused_dw_fwd_kernel<XT, TP, ROUND>;
+  auto kernel = fused_dw_fwd_kernel<XT, TP, ROUND, W0R>;
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -198,43 +194,65 @@ cudaError_t launch(const void* x, const float* w2, float* out, int B, int in,
   return cudaGetLastError();
 }
 
-template <typename XT, bool ROUND>
+template <typename XT, bool ROUND, bool W0R>
 cudaError_t dispatch_tp(const void* x, const float* w2, float* out, int B,
                         int in, int dp1, int T, int apply_tanh,
                         cudaStream_t s) {
-  if (T <= 4) return launch<XT, 4, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
-  if (T <= 8) return launch<XT, 8, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
-  if (T <= 12) return launch<XT, 12, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
-  if (T <= 16) return launch<XT, 16, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
-  if (T <= 32) return launch<XT, 32, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
-  return launch<XT, 64, ROUND>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+  switch (qkan::pad_t(T)) {
+    case 4: return launch<XT, 4, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+    case 8: return launch<XT, 8, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+    case 12: return launch<XT, 12, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+    case 16: return launch<XT, 16, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+    case 32: return launch<XT, 32, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+    default: return launch<XT, 64, ROUND, W0R>(x, w2, out, B, in, dp1, T, apply_tanh, s);
+  }
+}
+
+bool bad_shape(int B, int in, int dp1, int T) {
+  return B < 1 || in < 1 || dp1 < 1 || dp1 > 32 || T < 1 || T > 64;
 }
 
 }  // namespace
 
-// C entry point.  x: [B, in] f32 (x_is_bf16=0) or bf16 (1), contiguous;
-// w2: [dp1*in, T] f32 contiguous; out: [B, T] f32.  Returns the CUDA error
-// of the launch (0 on success).  Allocates nothing, does not synchronise.
+// C entry points.  x: [B, in] f32 (x_is_bf16=0) or bf16 (1), contiguous;
+// w2: [dp1*in, T] f32 contiguous; out: [B, T] f32.  Each returns the CUDA
+// error of the launch (0 on success), allocates nothing and does not
+// synchronise.
+//
+// Degree-wise layer (kan_layer_fused_dw); round_bf16 selects 'bf16'.
 extern "C" int qkan_fused_dw_fwd(const void* x, const void* w2, void* out,
                                  int B, int in, int dp1, int T, int x_is_bf16,
                                  int round_bf16, int apply_tanh,
                                  void* stream) {
-  if (B < 1 || in < 1 || dp1 < 1 || dp1 > 32 || T < 1 || T > 64) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
   const float* w = static_cast<const float*>(w2);
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_is_bf16) {
     err = round_bf16
-              ? dispatch_tp<__nv_bfloat16, true>(x, w, o, B, in, dp1, T, apply_tanh, s)
-              : dispatch_tp<__nv_bfloat16, false>(x, w, o, B, in, dp1, T, apply_tanh, s);
+              ? dispatch_tp<__nv_bfloat16, true, false>(x, w, o, B, in, dp1, T, apply_tanh, s)
+              : dispatch_tp<__nv_bfloat16, false, false>(x, w, o, B, in, dp1, T, apply_tanh, s);
   } else {
     err = round_bf16
-              ? dispatch_tp<float, true>(x, w, o, B, in, dp1, T, apply_tanh, s)
-              : dispatch_tp<float, false>(x, w, o, B, in, dp1, T, apply_tanh, s);
+              ? dispatch_tp<float, true, false>(x, w, o, B, in, dp1, T, apply_tanh, s)
+              : dispatch_tp<float, false, false>(x, w, o, B, in, dp1, T, apply_tanh, s);
   }
+  return (int)err;
+}
+
+// v1 layer (kan_layer_fused): x's dtype decides the rounding.
+extern "C" int qkan_fused_fwd(const void* x, const void* w2, void* out, int B,
+                              int in, int dp1, int T, int x_is_bf16,
+                              int apply_tanh, void* stream) {
+  if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
+  const float* w = static_cast<const float*>(w2);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      x_is_bf16
+          ? dispatch_tp<__nv_bfloat16, true, true>(x, w, o, B, in, dp1, T, apply_tanh, s)
+          : dispatch_tp<float, false, false>(x, w, o, B, in, dp1, T, apply_tanh, s);
   return (int)err;
 }
 

@@ -1,12 +1,15 @@
-"""FixedKAN forward and checkpoints on torch tensors.
+"""FixedKAN forward, gradient training and checkpoints on torch tensors.
 
 Counterpart of ``qkan_implementation_tpu.models.fixed_kan``, cut to the
-serving path: the config with its presets, the forward precision policy,
-``kan_layer_apply`` / ``kan_apply`` on the ``'xla'`` fold and the
-``'fused_dw'`` kernel backend, and the npz checkpoint format, which stays
+serving and training paths: the config with its presets, the forward
+precision policy, ``kan_layer_apply`` / ``kan_apply`` on the ``'xla'``
+fold and the ``'fused'`` / ``'fused_dw'`` kernel backends, ``train`` and
+``train_horizontal_weights`` (Adam with per-group clipping, fan-in
+learning rates and the cosine schedule of the JAX package's optax chain,
+``models._optim``), and the npz checkpoint format, which stays
 byte-compatible with the JAX package so a model saved by either loads in
-the other.  Structure search (``optimize``) and training are not ported
-yet (ROADMAP.md queue 1).
+the other.  Structure search (``optimize``), ``analyze_network`` and
+``visualize_analysis`` are not ported yet (ROADMAP.md queue 1).
 
 Parameters are a list of per-layer dicts, as in the JAX package:
 ``degrees [out]`` (int), ``coefficients [out, in, D+1, T]`` and
@@ -16,6 +19,7 @@ Parameters are a list of per-layer dicts, as in the JAX package:
 from __future__ import annotations
 
 import json
+import logging
 from dataclasses import asdict, dataclass
 from typing import List, Optional
 
@@ -23,8 +27,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from qkan_implementation_tpu_torch.models._optim import AdamGroup
 from qkan_implementation_tpu_torch.ops.chebyshev import chebyshev_basis
-from qkan_implementation_tpu_torch.ops.fused_layer import kan_layer_fused_dw
+from qkan_implementation_tpu_torch.ops.fused_layer import (
+    kan_layer_fused,
+    kan_layer_fused_dw,
+)
 from qkan_implementation_tpu_torch.utils.convert import (
     params_from_numpy,
     params_to_numpy,
@@ -39,7 +47,8 @@ class FixedKANConfig:
     The same fields, defaults and presets as the JAX package's
     ``FixedKANConfig``: its JSON form is what checkpoints carry, so the
     two must not diverge.  ``layer_backend`` 'xla' is the plain fold +
-    matmul; 'fused_dw' runs the degree-wise CUDA kernel on the card.
+    matmul; 'fused' and 'fused_dw' run the v1 and degree-wise CUDA
+    kernels on the card.
     """
 
     network_shape: List[int]
@@ -180,9 +189,12 @@ def kan_layer_apply(
 
     y = sum_o hw_o * (cumulative_transform(tanh(x))[<=d_o] @ C_o), folded
     over ``o`` into one [in*(D+1), T] weight.  ``backend='xla'`` folds it
-    dim-major and multiplies the materialized basis; ``'fused_dw'`` folds
-    it degree-major and runs ``ops.fused_layer.kan_layer_fused_dw`` (the
-    CUDA kernel on the card), whose output is float32.
+    dim-major and multiplies the materialized basis; ``'fused'`` and
+    ``'fused_dw'`` fold it degree-major and run
+    ``ops.fused_layer.kan_layer_fused`` / ``kan_layer_fused_dw`` (the CUDA
+    kernels on the card), whose output is float32.  ``'fused'`` takes x
+    as it is (or in ``compute_dtype``) and ignores ``matmul_precision``,
+    as the JAX package's v1 kernel does.
 
     ``matmul_precision``: 'auto' gives 'high' at fan-in >= 512 and the
     device default below; 'high'/'highest' are true FP32 (TF32 off);
@@ -209,15 +221,13 @@ def kan_layer_apply(
             raise ValueError(
                 f"backend={backend!r} has no int8 path; use backend='xla'"
             )
-        if backend == "fused":
-            raise NotImplementedError(
-                "backend='fused' needs the v1 fused-layer kernels "
-                "(_fwd_kernel/_bwd_kernel), ROADMAP queue 2; use 'fused_dw'"
-            )
         # degree-major [dp1*in, T] fold for the kernel's basis layout
         w_dm = torch.einsum("oidt,od->dit", coeffs, scale).reshape(
             -1, coeffs.shape[-1]
         ).to(torch.float32).contiguous()
+        if backend == "fused":
+            xin = x if compute_dtype is None else x.to(compute_dtype)
+            return kan_layer_fused(xin.contiguous(), w_dm, max_degree + 1)
         if compute_dtype == torch.bfloat16:
             prec = "bf16"
         else:
@@ -277,18 +287,23 @@ _PARAM_KEYS = ("degrees", "coefficients", "horizontal_weights")
 
 
 class FixedKAN(nn.Module):
-    """FixedKAN inference module: params as buffers, forward = kan_apply.
+    """FixedKAN module: params as buffers, forward = kan_apply, ``train``.
 
-    ``device`` is required: the module never picks one.  Assigning
-    ``params`` (a list of per-layer dicts of tensors, or None) registers
-    them as buffers ``layer{i}_{key}`` on this module's device.
+    ``device`` defaults to the card: without one, ``resolve_device``
+    raises rather than run on the CPU, which must be asked for.
+    Assigning ``params`` (a list of per-layer dicts of tensors, or None)
+    registers them as buffers ``layer{i}_{key}`` on this module's device.
     """
 
-    def __init__(self, config: FixedKANConfig, *, device):
+    def __init__(self, config: FixedKANConfig, *, device="cuda"):
         super().__init__()
         self.config = config
         self.device = resolve_device(device)
         self._num_layers: Optional[int] = None
+        self.last_train_diverged = False
+        self.last_train_losses: list = []
+        # resolved by train(); None means "never trained"
+        self.last_matmul_precision = None
 
     @property
     def params(self) -> Optional[list]:
@@ -329,6 +344,237 @@ class FixedKAN(nn.Module):
             matmul_precision=cfg.forward_matmul_precision,
         )
 
+    # -- gradient training -------------------------------------------------
+    def train(
+        self,
+        x_data=True,
+        y_data=None,
+        epochs: int = 10,
+        batch_size: int = 64,
+        learning_rate: float = 0.01,
+        loss: str = "cross_entropy",
+        trainable: str = "all",
+        grad_clip: float | None = None,
+        lr_scale: str = "none",
+        lr_schedule: str = "none",
+        seed: int = 0,
+        verbose: bool = False,
+        backend: str = "xla",
+        compute_dtype=None,
+        matmul_precision: str | None = "auto",
+        mesh=None,
+        mesh_axis: str | None = None,
+        tensor_axis: str | None = "auto",
+    ):
+        """Gradient training with Adam; returns the per-epoch mean losses.
+
+        The JAX package's ``FixedKAN.train``, with its signature, defaults
+        and results (``last_train_losses``, ``last_train_diverged``,
+        ``last_matmul_precision``).  Called as ``train(mode)`` with one
+        bool, as torch's ``eval()`` and parent modules call it, it sets
+        the module's training flag like ``nn.Module.train`` instead.
+
+        - ``trainable``: 'all' moves every coefficient and horizontal
+          weight; 'horizontal' only the horizontal weights.  Degrees never
+          move.
+        - ``grad_clip``: global-norm clipping WITHIN each label group, as
+          ``optax.multi_transform`` clips: one norm over all horizontal
+          weights, one per layer's coefficients.
+        - ``lr_scale='fanin'``: layer i's coefficients learn at
+          lr * fanin_last / fanin_i, fanin = in * (D+1) * out.
+        - ``lr_schedule='cosine'``: every group decays from its own lr to
+          zero over epochs * steps updates.
+        - batches: ``np.random.default_rng(seed)``; each epoch takes
+          ``permutation(n)[:steps * batch_size]``; the data goes to the
+          device once and each step gathers its rows there.
+        - a non-finite loss in an epoch stops the run and restores the
+          last finite epoch's parameters.
+        - precision: 'xla' runs 'auto' as 'high' (true FP32; on the card
+          TF32 must be off, else it raises); 'fused' always 'high';
+          'fused_dw' maps 'auto'/'highest'/'bf16x2_*' to 'high' and a
+          bf16 ``compute_dtype`` to 'bf16'.
+
+        ``mesh`` (data and tensor parallelism) is not ported yet.
+        """
+        if isinstance(x_data, bool) and y_data is None:
+            return nn.Module.train(self, x_data)
+        if mesh is not None:
+            raise NotImplementedError(
+                "train(mesh=...) needs the multi-device slice, ROADMAP.md "
+                "queue 1 item 10"
+            )
+        if self.params is None:
+            raise RuntimeError("Run optimization first.")
+        x = torch.as_tensor(x_data, device=self.device)
+        y = torch.as_tensor(y_data, device=self.device)
+        max_degree = self.config.max_degree
+        compute_dtype = _compute_dtype(compute_dtype)
+        if compute_dtype in _INT8_RECIPES:
+            raise ValueError("int8 rounding has zero gradient; use bf16")
+        if compute_dtype is not None:
+            x = x.to(compute_dtype)  # store once, the bf16io recipe
+
+        # the precision each backend runs (JAX fixed_kan.py:1074-1090); the
+        # port has no ambient matmul context, so 'xla' passes it through
+        # kan_apply like the fused backends
+        if backend == "xla":
+            if matmul_precision == "auto":
+                matmul_precision = "high"
+        elif backend == "fused":
+            matmul_precision = "high"  # what the v1 kernel runs
+        elif backend == "fused_dw":
+            if matmul_precision in ("auto", "highest", "bf16x2_w",
+                                    "bf16x2_x"):
+                matmul_precision = "high"
+            if compute_dtype == torch.bfloat16:
+                matmul_precision = "bf16"
+        else:
+            raise ValueError(
+                f"unknown backend {backend!r}: expected 'xla', 'fused', or "
+                "'fused_dw'"
+            )
+        self.last_matmul_precision = matmul_precision
+
+        def forward(params, xb):
+            return kan_apply(params, xb, max_degree, compute_dtype, backend,
+                             matmul_precision=matmul_precision)
+
+        if loss == "cross_entropy":
+            if y.dim() == 1:
+                onehot_dtype = (
+                    torch.float64 if x.dtype == torch.float64
+                    else torch.float32
+                )
+                y_train = torch.nn.functional.one_hot(
+                    y.long(), self.config.network_shape[-1]
+                ).to(onehot_dtype)
+            else:
+                y_train = y
+
+            def loss_fn(params, xb, yb):
+                logp = torch.log_softmax(forward(params, xb), dim=-1)
+                return torch.mean(-torch.sum(yb * logp, dim=-1))
+        elif loss == "mse":
+            y_train = y if y.dim() > 1 else y[:, None]
+
+            def loss_fn(params, xb, yb):
+                return torch.mean((forward(params, xb) - yb) ** 2)
+        else:
+            raise ValueError(f"Unknown loss {loss!r}")
+
+        if trainable not in ("all", "horizontal"):
+            raise ValueError(f"Unknown trainable {trainable!r}")
+        if lr_schedule not in ("none", "cosine"):
+            raise ValueError(f"Unknown lr_schedule {lr_schedule!r}")
+        n = x.shape[0]
+        batch_size = min(batch_size, n)  # a batch can't exceed the dataset
+        steps = max(1, n // batch_size)
+
+        # leaves built from the buffers; the integer degrees stay outside
+        params = [
+            {
+                "degrees": lp["degrees"],
+                "coefficients": lp["coefficients"].detach().clone()
+                .requires_grad_(trainable == "all"),
+                "horizontal_weights": lp["horizontal_weights"].detach()
+                .clone().requires_grad_(),
+            }
+            for lp in self.params
+        ]
+        decay = epochs * steps if lr_schedule == "cosine" else None
+        groups = [AdamGroup(
+            [lp["horizontal_weights"] for lp in params], learning_rate,
+            grad_clip, decay,
+        )]
+        if trainable == "all":
+            dp1 = max_degree + 1
+            fanins = [
+                float(lp["coefficients"].shape[1] * dp1
+                      * lp["coefficients"].shape[0])
+                for lp in params
+            ]
+            for lp, fanin in zip(params, fanins):
+                lr = (learning_rate * fanins[-1] / fanin
+                      if lr_scale == "fanin" else learning_rate)
+                groups.append(AdamGroup(
+                    [lp["coefficients"]], lr, grad_clip, decay
+                ))
+        leaves = [p for grp in groups for p in grp.params]
+
+        def train_step(idx_row):
+            l = loss_fn(params, x[idx_row], y_train[idx_row])
+            grads = torch.autograd.grad(l, leaves)
+            k = 0
+            for grp in groups:
+                grp.step(grads[k : k + len(grp.params)])
+                k += len(grp.params)
+            return l.detach()
+
+        rng = np.random.default_rng(seed)
+        losses, diverged = self._run_epochs(
+            train_step, params, rng, epochs, n, steps, batch_size, verbose
+        )
+        self.params = [
+            {k: v.detach() for k, v in lp.items()} for lp in params
+        ]
+        self.last_train_diverged = diverged
+        self.last_train_losses = list(losses)
+        return losses
+
+    def _run_epochs(
+        self, train_step, params, rng, epochs, n, steps, batch_size, verbose
+    ):
+        """Epoch loop with divergence detection: the step losses come to
+        the host once per epoch; a non-finite one restores the last finite
+        epoch's parameters in place.  Returns (losses, diverged)."""
+        losses = []
+        keys = ("coefficients", "horizontal_weights")
+        last_good = [{k: lp[k].detach().clone() for k in keys}
+                     for lp in params]
+        diverged = False
+        for epoch in range(epochs):
+            perm = rng.permutation(n)[: steps * batch_size]
+            idx = torch.from_numpy(perm.reshape(steps, batch_size)).to(
+                self.device
+            )
+            ls = torch.stack([train_step(row) for row in idx])
+            ls = ls.cpu().numpy().astype(np.float64)
+            if not np.isfinite(ls).all():
+                bad = int(np.argmax(~np.isfinite(ls)))
+                logging.getLogger(__name__).warning(
+                    "Non-finite loss at epoch %d step %d; stopping and "
+                    "restoring the last finite epoch's parameters",
+                    epoch, bad,
+                )
+                with torch.no_grad():
+                    for lp, good in zip(params, last_good):
+                        for k in keys:
+                            lp[k].copy_(good[k])
+                diverged = True
+                break
+            for lp, good in zip(params, last_good):
+                for k in keys:
+                    good[k].copy_(lp[k].detach())
+            losses.append(float(ls.mean()))
+            if verbose:
+                print(f"Epoch {epoch+1}/{epochs}, avg Loss: {losses[-1]:.4f}")
+        return losses, diverged
+
+    def train_horizontal_weights(
+        self, x_data, y_data, epochs: int, learning_rate: float = 0.01, **kw
+    ) -> list:
+        """Reference-parity trainer: Adam + cross-entropy on the horizontal
+        weights only (FixedKAN.train_horizontal_weights:309-333)."""
+        return self.train(
+            x_data,
+            y_data,
+            epochs=epochs,
+            learning_rate=learning_rate,
+            loss="cross_entropy",
+            trainable="horizontal",
+            **kw,
+        )
+
     # -- checkpointing (npz, the JAX package's format) -------------------
     def save_model(self, filepath: str) -> None:
         """Save config + params: a ``config_json`` uint8 entry and
@@ -344,7 +590,7 @@ class FixedKAN(nn.Module):
         np.savez(filepath, **arrays)
 
     @classmethod
-    def load_model(cls, filepath: str, *, device) -> "FixedKAN":
+    def load_model(cls, filepath: str, *, device="cuda") -> "FixedKAN":
         """Rebuild a model from a checkpoint onto ``device``, arrays in
         the dtypes they were stored in."""
         path = str(filepath)

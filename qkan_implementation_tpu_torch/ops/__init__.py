@@ -1,7 +1,7 @@
-"""Chebyshev transforms and the degree-wise fused layer, on torch tensors.
+"""Chebyshev transforms and the fused layers, on torch tensors.
 
 The JAX package's ``ops`` also exports the ``qkan_layer`` step pipeline
-and the v1 ``kan_layer_fused``; those are not ported yet (ROADMAP.md).
+and ``kan_train_step_fused``; those are not ported yet (ROADMAP.md).
 """
 
 from qkan_implementation_tpu_torch.ops.chebyshev import (
@@ -15,8 +15,12 @@ from qkan_implementation_tpu_torch.ops.chebyshev import (
     check_weight_magnitudes,
 )
 from qkan_implementation_tpu_torch.ops.fused_layer import (
+    kan_layer_fused,
+    kan_layer_fused_bwd_reference,
     kan_layer_fused_dw,
+    kan_layer_fused_dw_bwd_reference,
     kan_layer_fused_dw_reference,
+    kan_layer_fused_reference,
 )
 
 __all__ = [
@@ -28,6 +32,10 @@ __all__ = [
     "dilated_chebyshev_diag",
     "check_unit_interval",
     "check_weight_magnitudes",
+    "kan_layer_fused",
+    "kan_layer_fused_bwd_reference",
     "kan_layer_fused_dw",
+    "kan_layer_fused_dw_bwd_reference",
     "kan_layer_fused_dw_reference",
+    "kan_layer_fused_reference",
 ]

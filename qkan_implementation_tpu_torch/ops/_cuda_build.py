@@ -1,15 +1,21 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-The sources are the package's own ``csrc/*.cu``, compiled at first use
-into one shared library with a plain C interface:
+The sources are the package's own ``csrc/*.cu`` (with the shared
+``csrc/*.cuh``), compiled at first use into one shared library with a
+plain C interface.  Each source compiles in its own nvcc process, all
+started together, and one more links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o _build/libqkan_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o _build/libqkan_kernels_<hash>.so *.o
 
 The library lands in ``qkan_implementation_tpu_torch/_build/``, named by a
 hash of the sources and flags, so an edited source builds anew and an
-unchanged one is loaded from disk.  Nothing here runs at import time: the
-CPU-only test machine has no nvcc and never calls ``load_library``.
+unchanged one is loaded from disk.  ptxas's register and spill report of
+the build is kept beside it (``ptxas_<hash>.log``).  Nothing here runs at
+import time: the CPU-only test machine has no nvcc and never calls
+``load_library``.
 """
 
 from __future__ import annotations
@@ -26,10 +32,12 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v", "-c",
 )
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -64,11 +72,34 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for src in _sources():
+    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libqkan_kernels_{h.hexdigest()[:16]}.so"
+
+
+def ptxas_log_path() -> Path:
+    """ptxas's report (registers, shared memory, spills) of the build."""
+    return library_path().with_name(
+        library_path().stem.replace("libqkan_kernels", "ptxas") + ".log"
+    )
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}{err}"
+            )
+    return [out + err for out, err in outs]
 
 
 def build() -> Path:
@@ -77,19 +108,19 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: a concurrent process
-    # never loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        logs = _run_all([
+            [nvcc, *COMPILE_FLAGS, "-o", str(o), str(src)]
+            for src, o in zip(_sources(), objs)
+        ])
+        # link under a temporary name, then rename: a concurrent process
+        # never loads a half-written library
+        lib_tmp = Path(tmp) / out.name
+        _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib_tmp), *map(str, objs)]])
+        ptxas_log_path().write_text("".join(logs))
+        os.replace(lib_tmp, out)
     return out
 
 
@@ -99,11 +130,30 @@ def load_library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.qkan_fused_dw_fwd.argtypes = [
                 p, p, p, i, i, i, i, i, i, i, p,
             ]
-            lib.qkan_fused_dw_fwd.restype = i
+            lib.qkan_fused_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            lib.qkan_fused_bwd_workspace_bytes.argtypes = [i, i, i, i, i]
+            lib.qkan_fused_bwd_workspace_bytes.restype = ll
+            lib.qkan_fused_bwd_row_blocks.argtypes = [i, i, i, i]
+            lib.qkan_fused_bwd_row_blocks.restype = i
+            lib.qkan_fused_bwd_launches.argtypes = [i, i]
+            lib.qkan_fused_bwd_launches.restype = i
+            lib.qkan_fused_dw_bwd.argtypes = [
+                p, p, p, p, p, ll, i, i, i, i, i, i, i, i, p,
+            ]
+            lib.qkan_fused_bwd.argtypes = [
+                p, p, p, p, p, ll, i, i, i, i, i, i, i, p,
+            ]
+            lib.qkan_fused_bwd_partial_sum.argtypes = [
+                p, ll, p, i, i, i, i, i, p,
+            ]
+            for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
+                          "qkan_fused_dw_bwd", "qkan_fused_bwd",
+                          "qkan_fused_bwd_partial_sum"):
+                getattr(lib, entry).restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

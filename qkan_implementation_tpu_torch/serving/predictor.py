@@ -30,14 +30,13 @@ class BatchedPredictor:
         dtype: torch.dtype = torch.float32,
         device=None,
     ):
-        """``device`` is required with a checkpoint path; with a model it
-        defaults to the model's device and must match it if given."""
+        """With a checkpoint path ``device`` defaults to the card
+        (``"cuda"``; the CPU must be asked for); with a model it defaults
+        to the model's device and must match it if given."""
         if isinstance(model, (str, os.PathLike)):
-            if device is None:
-                raise ValueError(
-                    "device is required when loading a checkpoint path"
-                )
-            model = FixedKAN.load_model(model, device=device)
+            model = FixedKAN.load_model(
+                model, device="cuda" if device is None else device
+            )
         elif device is not None and torch.device(device) != model.device:
             raise ValueError(
                 f"model lives on {model.device}, not on {device}"

@@ -4,9 +4,11 @@ with the same numpy parameters and inputs.
 Bars:
 - 'xla' backend in float64 (the JAX suite runs x64): 1e-10.  Both sides
   fold the same coefficients and multiply the same basis.
-- 'fused_dw' backend: float32 kernel semantics on both sides (the port's
-  plain version vs JAX's Pallas interpret), rtol 1e-5 / atol 1e-6 with
-  O(1) outputs; only summation order and tanh's last ulp differ.
+- 'fused_dw' and 'fused' backends: float32 kernel semantics on both
+  sides (the port's plain versions vs JAX's Pallas interpret), rtol 1e-5
+  / atol 1e-6 with O(1) outputs; only summation order and tanh's last ulp
+  differ.  'fused' on a float64 x runs its basis in float64 on both sides
+  against the f32-rounded fold, so the same bar holds.
 - bf16 recipes (bf16x2 splits, bf16 compute_dtype on 'xla'): the bf16
   operands are the same on both sides and multiply exactly in f32; sums
   are f32 in another order: rtol 1e-5 / atol 1e-6.
@@ -146,7 +148,7 @@ def test_fused_dw_bf16_compute_dtype_matches_jax():
     assert np.abs(got - f32).max() > bar
 
 
-@pytest.mark.parametrize("backend", ["xla", "fused_dw"])
+@pytest.mark.parametrize("backend", ["xla", "fused_dw", "fused"])
 def test_kan_apply_matches_jax(backend):
     rng = np.random.default_rng(21)
     shape, t_dim, d = [12, 6, 5, 3], 3, 4
@@ -171,15 +173,23 @@ def test_backend_and_dtype_errors():
     for typo in ("fuse", "fused-dw", "XLA"):
         with pytest.raises(ValueError, match="backend"):
             torch_fk.kan_layer_apply(lp, x, 2, backend=typo)
-    with pytest.raises(NotImplementedError, match="queue 2"):
-        torch_fk.kan_layer_apply(lp, x, 2, backend="fused")
+    # backend='fused' runs (the v1 pair) and matches the JAX package
+    xr = torch.from_numpy(rng.uniform(-2, 2, (5, 4)))
+    got = torch_fk.kan_layer_apply(lp, xr, 2, backend="fused")
+    want = jax_fk.kan_layer_apply(
+        {k: jnp.asarray(v.numpy()) for k, v in lp.items()},
+        jnp.asarray(xr.numpy()), 2, backend="fused",
+    )
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     for cd in ("int8", "int8x2", "int8x2w", torch.int8):
         with pytest.raises(NotImplementedError, match="qkan_layer"):
             torch_fk.kan_layer_apply(lp, x, 2, compute_dtype=cd)
         # as in the JAX package: the fused backends have no int8 path
-        with pytest.raises(ValueError, match="int8"):
-            torch_fk.kan_layer_apply(lp, x, 2, compute_dtype=cd,
-                                     backend="fused_dw")
+        for backend in ("fused_dw", "fused"):
+            with pytest.raises(ValueError, match="int8"):
+                torch_fk.kan_layer_apply(lp, x, 2, compute_dtype=cd,
+                                         backend=backend)
     with pytest.raises(ValueError, match="matmul_precision"):
         torch_fk.kan_layer_apply(lp, x, 2, matmul_precision="fastest")
     with pytest.raises(ValueError, match="compute_dtype"):
@@ -218,7 +228,7 @@ def test_config_and_presets_match_jax():
         torch_fk.FixedKANConfig.preset("fast", [2, 1], 1)
 
 
-@pytest.mark.parametrize("backend", ["xla", "fused_dw"])
+@pytest.mark.parametrize("backend", ["xla", "fused_dw", "fused"])
 def test_fixed_kan_module_matches_jax_model(backend):
     rng = np.random.default_rng(5)
     shape, d = [8, 4, 3], 3
@@ -245,8 +255,13 @@ def test_fixed_kan_module_matches_jax_model(backend):
 
 def test_device_is_explicit():
     cfg = torch_fk.FixedKANConfig(network_shape=[2, 1], max_degree=1)
-    with pytest.raises(TypeError):
-        torch_fk.FixedKAN(cfg)  # no device: never chosen silently
+    # no device means the card: without one it raises, never runs on CPU
+    if torch.cuda.is_available():
+        assert torch_fk.FixedKAN(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="is_available"):
+            torch_fk.FixedKAN(cfg)
+    assert torch_fk.FixedKAN(cfg, device="cpu").device == torch.device("cpu")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

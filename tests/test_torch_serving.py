@@ -146,8 +146,12 @@ def test_predictor_buckets_and_batch_limits(jax_model):
     for bad in (0, -4, 2.5):
         with pytest.raises(ValueError, match="max_batch"):
             BatchedPredictor(model, max_batch=bad)
-    with pytest.raises(ValueError, match="device is required"):
-        BatchedPredictor(path)
+    if not torch.cuda.is_available():
+        # a path without a device means the card: never the CPU silently
+        with pytest.raises(RuntimeError, match="is_available"):
+            BatchedPredictor(path)
+        with pytest.raises(RuntimeError, match="is_available"):
+            FixedKAN.load_model(path)
     before = odd.stats()["requests"]
     for _ in range(3):
         odd.predict(x[:2])
