@@ -45,13 +45,55 @@ Phases, each reported on its own lines:
    shapes (the kernel's own time, without the wrapper's host time that
    the CUDA-event times of phases 4 and 6 carry) and over 10 train steps
    per backend at batch 64 (device busy share, time by kernel).
+9. statevector kernels vs plain: K6 (through ``ucry_msb_cs_pallas_pair``
+   and ``ucry_msb_cs_pallas``, K7's entry), K8, K9 and K10 against their
+   plain torch versions on the card at q in {5, 11, 21}, batch 1 and 8,
+   shared and per-row angles, float32 and float64, and at the shapes the
+   main paths of phase 10 give them: 17 qubits at batch 256 and 8 with
+   per-row angles (the quantum layer, 10a-c) and 11 qubits at batch 4
+   with shared angles (the dense FABLE columns, 10d); K10 on every qubit
+   of an 11-qubit state; the K6 and K8 VJPs against autograd through the
+   plain versions.  Bars 1e-6 max|plain| (f32), 1e-13 max|plain| (f64).
+10. the quantum slice at full width:
+   a. ``qkan_layer_forward_quantum_batched`` at N = K = 16, degree 7
+      (17-qubit packed circuits), B = 256, f32 and f64, against the
+      classical ``qkan_layer_forward_batched`` on the card: 1e-4 (f32)
+      and 1e-8 (f64) absolute; K8 launches once a forward;
+   b. the weights' gradient of the mean-squared loss at B = 8 against the
+      classical gradient, f64: 1e-6 absolute;
+   c. the training run of ``examples/quantum_training_demo.py``: 60 Adam
+      steps at lr 0.05, weights clipped to [-1, 1], B = 8, f32; the loss
+      must fall below a tenth of its start, and K8 must launch 60 times;
+   d. block encoding at scale, as ``examples/block_encoding_at_scale.py``:
+      ``fable_runtime_params`` of a random 2^13 diagonal, one column
+      through ``simulate_fable_runtime`` (27 qubits, a 512 MB f32 state,
+      K6), within 5e-4 max(1, alpha); and ``simulate(fable(a))`` on a dense
+      random 32 x 32 matrix, its first columns against a / (alpha 32);
+   e. ``simulate_fable_pallas`` on a dense random 1024 x 1024 matrix (21
+      qubits; K8 once, K10 on each of the 20 H gates), column 0 within
+      5e-4 max(1, alpha) and the whole state within 1e-5 of the unfused
+      ``simulate(backend='xla')``;
+   f. ``diag_mult_pallas`` on that 21-qubit state (K9).
+11. statevector kernel times at 21 qubits (an 8 MB f32 state: it sits in
+   the 50 MB L2) and 27 qubits (512 MB: HBM), f32: CUDA-event ms, device
+   µs from ``torch.profiler`` and the plain version's ms, from one case
+   table per size, each kernel first held to its plain version on the
+   same state (the phase 9 bars; 27 qubits is the block encoding's K6
+   shape); the bound is the bytes over 3.35 TB/s (K6 12, K8 10, K9 12,
+   K10 8 bytes an amplitude).  K9's one PyTorch call is ``torch.mul``,
+   K10's is ``torch.matmul`` of the 2x2 Hadamard with the
+   [outer, 2, inner] view; no single PyTorch call computes a multiplexed
+   rotation, so ``library_ms`` is null for K6/K7 and K8.  Then one call of each quantum path (the layer forward at
+   B = 256, a train step at B = 8, the 27-qubit block encoding, the
+   21-qubit gate-by-gate simulation) under ``torch.profiler``: device
+   busy share and time by kernel.
 
 The counts of kernel launches are set to 0 just before each main path
-(the serving slice, each training run, each trained model's request) and
-read just after; launches made to compare kernels with their plain
+(the serving slice, each training run, each trained model's request,
+each path of phase 10) and read just after; launches made to compare kernels with their plain
 versions are not counted.  The last line is ``{"ok": true, "device":
-{...}}``; the line before it is the kernels' JSON record, and the line
-before that the train step times.  Any failed check raises and the script
+{...}}``; the line before it is the kernels' JSON record, and the lines
+before that the quantum slice's and the train step's times.  Any failed check raises and the script
 exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
@@ -96,7 +138,17 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused_dw_reference,
     kan_layer_fused_reference,
 )
+from qkan_implementation_tpu_torch.encoding import fable, fable_runtime_params
+from qkan_implementation_tpu_torch.ops.qkan_layer import (
+    qkan_layer_forward_batched,
+)
+from qkan_implementation_tpu_torch.ops.quantum import (
+    qkan_layer_forward_quantum_batched,
+)
 from qkan_implementation_tpu_torch.serving import BatchedPredictor, serve
+from qkan_implementation_tpu_torch.sim import pallas_kernels as pk
+from qkan_implementation_tpu_torch.sim import simulate
+from qkan_implementation_tpu_torch.sim.fusion import simulate_fable_runtime
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
 
 SEED = 0
@@ -135,6 +187,14 @@ COUNTERS = [
     ("fused_fwd", kan_layer_fused, "launches"),
     ("fused_bwd", kan_layer_fused, "bwd_launches"),
     ("fused_bwd_partial_sum", fused_bwd_partial_sum, "launches"),
+    ("ucry_cs_pair", pk.ucry_msb_cs_pallas_pair, "launches"),
+    ("ucry_cs_pair_bwd", pk.ucry_msb_cs_pallas_pair, "bwd_launches"),
+    ("ucry_cs", pk.ucry_msb_cs_pallas, "launches"),
+    ("ucry_cs_bwd", pk.ucry_msb_cs_pallas, "bwd_launches"),
+    ("ucry", pk.ucry_msb_pallas, "launches"),
+    ("ucry_bwd", pk.ucry_msb_pallas, "bwd_launches"),
+    ("diag_mult", pk.diag_mult_pallas, "launches"),
+    ("h_pair", pk.h_gate_pallas, "launches"),
 ]
 
 
@@ -843,6 +903,436 @@ def profile_device_time(device, workdir: Path, card: str) -> None:
                 us_per_step=f"{us / 10:.3f}", count=count)
 
 
+# -- phases 9-11: the quantum runtime -------------------------------------------
+
+# kernel vs plain: both sides do the same few flops an amplitude and
+# differ by a contracted FMA or the last bit of sin/cos
+SV_BAR = {torch.float32: 1e-6, torch.float64: 1e-13}
+SV_SIZES = (5, 11, 21)
+# the headline quantum layer (tests/test_quantum_mode.py's N=K=16 case)
+QN = QK = 16
+QDEG = 7
+QB = 256
+# 10a: f32 is the atol of test_quantum_grad_finite_f32_at_saturation, f64
+# that of test_quantum_forward_matches_classical; 10b: test_quantum_mode's
+# gradient bar
+QLAYER_BAR = {torch.float32: 1e-4, torch.float64: 1e-8}
+QGRAD_BAR = 1e-6
+DEMO_STEPS, DEMO_LR, DEMO_B = 60, 0.05, 8
+SCALE_N = 13  # the example's n: a 2^13 diagonal, a 27-qubit circuit
+DENSE_N = 10  # a 1024 x 1024 matrix: 21 qubits
+# kernel name in the kernels line -> (TPU kernel, its counters, the device
+# function's name in the profiler)
+SV_KERNELS = {
+    "ucry_cs_pair": ("sim/pallas_kernels.py:168",
+                     ("ucry_cs_pair", "ucry_cs_pair_bwd", "ucry_cs",
+                      "ucry_cs_bwd"), "ucry_cs_kernel"),
+    "ucry": ("sim/pallas_kernels.py:47", ("ucry", "ucry_bwd"), "ucry_kernel"),
+    "diag_mult": ("sim/pallas_kernels.py:240", ("diag_mult",), "diag_kernel"),
+    "h_pair": ("sim/pallas_kernels.py:266", ("h_pair",), "h_pair_kernel"),
+}
+
+
+def _on(device, a, dtype):
+    return torch.from_numpy(np.asarray(a)).to(device=device, dtype=dtype)
+
+
+def check_statevector_kernels(device) -> dict:
+    """Phase 9: every statevector kernel against its plain version;
+    returns name -> worst |kernel - plain| over all cases."""
+    rng = np.random.default_rng(SEED + 9)
+    worst = {}
+
+    def held_sv(name, got, want, dtype, **where) -> float:
+        torch.cuda.synchronize()
+        if (got.shape != want.shape or got.dtype != want.dtype
+                or not bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name} {where}: bad output")
+        err = float((got - want).abs().max())
+        bar = SV_BAR[dtype] * float(want.abs().max())
+        if not err <= bar:
+            raise AssertionError(f"{name} {where}: {err} > {bar}")
+        worst[name] = max(worst.get(name, 0.0), err)
+        return err / bar
+
+    def dt(dtype):
+        return str(dtype).split(".")[-1]
+
+    # (qubits, batch, shared angles): the sweep, then the main paths'
+    # own shapes
+    cases = [(q, b, shared) for q in SV_SIZES
+             for b, shared in ((1, True), (8, True), (8, False))]
+    cases += [(17, QB, False), (17, DEMO_B, False), (11, 4, True)]
+    for q, batch, shared in cases:
+        lead = (batch,) if batch > 1 else ()
+        for dtype in (torch.float32, torch.float64):
+            where = dict(q=q, batch=batch,
+                         angles="shared" if shared else "per-row",
+                         float=dt(dtype))
+            rows = () if shared else lead
+            psi = _on(device, rng.normal(size=(*lead, 2**q)), dtype)
+            th = _on(device, rng.uniform(0, 2 * np.pi, (*rows, 2 ** (q - 1))),
+                     dtype)
+            d = _on(device, rng.uniform(-1, 1, (*rows, 2**q)), dtype)
+            c, s = torch.cos(th / 2), torch.sin(th / 2)
+            want = pk.ucry_msb_cs_reference(psi, c, s)
+            ratios = {
+                "ucry_cs_pair": held_sv(
+                    "ucry_cs_pair", pk.ucry_msb_cs_pallas_pair(psi, c, s),
+                    want, dtype, **where),
+                "ucry_cs(K7)": held_sv(
+                    "ucry_cs_pair", pk.ucry_msb_cs_pallas(psi, c, s),
+                    want, dtype, **where),
+                "ucry": held_sv(
+                    "ucry", pk.ucry_msb_pallas(psi, th),
+                    pk.ucry_msb_reference(psi, th), dtype, **where),
+                "diag_mult": held_sv(
+                    "diag_mult", pk.diag_mult_pallas(psi, d),
+                    pk.diag_mult_reference(psi, d), dtype, **where),
+            }
+            for qubit in sorted({0, q // 2, q - 1}):
+                ratios[f"h_pair[{qubit}]"] = held_sv(
+                    "h_pair", pk.h_gate_pallas(psi, qubit),
+                    pk.h_gate_reference(psi, qubit), dtype, **where)
+            log("sv_kernel", **where, err_over_bar={
+                k: f"{v:.3f}" for k, v in ratios.items()})
+            del psi, th, d, c, s, want
+    for dtype in (torch.float32, torch.float64):
+        psi = _on(device, rng.normal(size=2**11), dtype)
+        ratios = [held_sv("h_pair", pk.h_gate_pallas(psi, k),
+                          pk.h_gate_reference(psi, k), dtype, qubit=k)
+                  for k in range(11)]
+        log("sv_kernel", check="h_pair_every_qubit_of_11", float=dt(dtype),
+            worst_err_over_bar=f"{max(ratios):.3f}")
+
+    def grads(fn, args, tgt):
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        loss = torch.sum((fn(*leaves) - tgt) ** 2)
+        return torch.autograd.grad(loss, leaves)
+
+    for lead, shared in (((), True), ((8,), True), ((8,), False)):
+        for dtype in (torch.float32, torch.float64):
+            rows = () if shared else lead
+            psi = _on(device, rng.normal(size=(*lead, 2**11)), dtype)
+            tgt = _on(device, rng.normal(size=(*lead, 2**11)), dtype)
+            th = _on(device, rng.uniform(-3, 3, (*rows, 2**10)), dtype)
+            c, s = torch.cos(th / 2), torch.sin(th / 2)
+            for name, kern, plain, args in (
+                ("ucry", pk.ucry_msb_pallas, pk.ucry_msb_reference,
+                 (psi, th)),
+                ("ucry_cs_pair", pk.ucry_msb_cs_pallas_pair,
+                 pk.ucry_msb_cs_reference, (psi, c, s)),
+            ):
+                got, want = grads(kern, args, tgt), grads(plain, args, tgt)
+                ratios = [held_sv(name + "_vjp", g, w, dtype)
+                          for g, w in zip(got, want)]
+                log("sv_kernel", check=f"{name}_vjp_vs_autograd_of_plain",
+                    batch=lead[0] if lead else 1,
+                    angles="shared" if shared else "per-row", float=dt(dtype),
+                    err_over_bar=[f"{r:.3f}" for r in ratios])
+    return worst
+
+
+def _path(name: str, fn, expected: dict, paths: dict):
+    """Run one main path with the counts at 0, check them, keep them."""
+    torch.cuda.synchronize()
+    reset_counts()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - start) * 1e3
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(expected)
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts} != {want}")
+    paths[name] = counts
+    log("quantum", path=name, ms=f"{ms:.4f}",
+        launches={k: v for k, v in counts.items() if v})
+    return out, ms
+
+
+def _bar_check(name: str, err: float, bar: float, **fields) -> None:
+    log("quantum", check=name, max_abs_err=f"{err:.3e}", bar=f"{bar:.1e}",
+        **fields)
+    if not err <= bar:
+        raise AssertionError(f"{name}: {err} > {bar}")
+
+
+def run_quantum_slice(device) -> tuple[dict, dict, dict]:
+    """Phase 10: the quantum paths; returns (per-path launch counts, ms,
+    one call of each path for the profiler)."""
+    paths, times, calls = {}, {}, {}
+    rng = np.random.default_rng(SEED + 10)
+    x_np = rng.uniform(-0.9, 0.9, (QB, QN))
+    w_np = rng.uniform(-0.9, 0.9, (QDEG + 1, QN * QK))
+
+    # a. the batched quantum layer against the classical layer
+    for dtype in (torch.float32, torch.float64):
+        name = f"quantum_layer_{str(dtype).split('.')[-1]}"
+        x, w = _on(device, x_np, dtype), _on(device, w_np, dtype)
+        with torch.no_grad():
+            qkan_layer_forward_quantum_batched(x, w, QN, QK)  # warm
+            got, times[name] = _path(
+                name, lambda: qkan_layer_forward_quantum_batched(x, w, QN, QK),
+                {"ucry": 1}, paths)
+            want = qkan_layer_forward_batched(x, w, QN, QK)
+        if got.shape != (QB, QK) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: bad output {tuple(got.shape)}")
+        calls[f"{name}_forward_B{QB}"] = torch.no_grad()(
+            lambda x=x, w=w: qkan_layer_forward_quantum_batched(x, w, QN, QK))
+        _bar_check(name, float((got - want).abs().max()), QLAYER_BAR[dtype],
+                   batch=QB, max_abs_out=f"{float(want.abs().max()):.3e}")
+
+    # b. the gradient through the simulator against the classical one
+    x8 = _on(device, x_np[:DEMO_B], torch.float64)
+    w_true = _on(device, rng.uniform(-0.8, 0.8, w_np.shape), torch.float64)
+    target = qkan_layer_forward_batched(x8, w_true, QN, QK)
+
+    def mse_grad(forward):
+        w = _on(device, w_np, torch.float64).requires_grad_()
+        loss = torch.mean((forward(x8, w, QN, QK) - target) ** 2)
+        return torch.autograd.grad(loss, [w])[0]
+
+    # the state entering the rotation does not depend on the weights, so
+    # the VJP computes dtheta only: K8's backward launch is not needed
+    g_q, times["quantum_grad_f64"] = _path(
+        "quantum_grad_f64",
+        lambda: mse_grad(qkan_layer_forward_quantum_batched), {"ucry": 1},
+        paths)
+    g_c = mse_grad(qkan_layer_forward_batched)
+    _bar_check("quantum_grad_f64_vs_classical",
+               float((g_q - g_c).abs().max()), QGRAD_BAR, batch=DEMO_B,
+               max_abs_grad=f"{float(g_c.abs().max()):.3e}")
+
+    # c. the training demo: Adam through the simulator, f32
+    rng_demo = np.random.default_rng(0)
+    w_true = _on(device, rng_demo.uniform(-0.8, 0.8, w_np.shape),
+                 torch.float32)
+    xs = _on(device, rng_demo.uniform(-0.9, 0.9, (DEMO_B, QN)), torch.float32)
+    targets = qkan_layer_forward_batched(xs, w_true, QN, QK)
+    w = _on(device, rng_demo.uniform(-0.5, 0.5, w_np.shape),
+            torch.float32).requires_grad_()
+    opt = torch.optim.Adam([w], lr=DEMO_LR)
+
+    def demo_loss():
+        preds = qkan_layer_forward_quantum_batched(xs, w, QN, QK)
+        return torch.mean((preds - targets) ** 2)
+
+    with torch.no_grad():
+        initial = float(demo_loss())
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = demo_loss()
+        loss.backward()
+        opt.step()
+        with torch.no_grad():
+            w.clamp_(-1.0, 1.0)
+        return loss.detach()
+
+    def train():
+        return torch.stack([step() for _ in range(DEMO_STEPS)]).cpu().numpy()
+
+    losses, train_ms = _path("quantum_train_f32", train,
+                             {"ucry": DEMO_STEPS}, paths)
+    times["quantum_train_f32_ms_per_step"] = train_ms / DEMO_STEPS
+    with torch.no_grad():
+        final = float(demo_loss())
+    log("quantum", check="train_demo", steps=DEMO_STEPS,
+        loss_start=f"{initial:.4e}", loss_final=f"{final:.4e}",
+        losses_every_10=[f"{v:.3e}" for v in losses[::10]],
+        ms_per_step=f"{train_ms / DEMO_STEPS:.4f}")
+    if not (np.all(np.isfinite(losses)) and final < initial / 10.0):
+        raise AssertionError(f"training did not converge: {initial} -> {final}")
+    calls[f"quantum_train_step_f32_B{DEMO_B}"] = step
+
+    # d. block encoding at scale: one column of a 2^13 diagonal's encoding
+    rng_scale = np.random.default_rng(0)
+    size = 2**SCALE_N
+    diag = rng_scale.uniform(-1, 1, size)
+    start = time.perf_counter()
+    cs, sn, alpha, n = fable_runtime_params(np.diag(diag))
+    host_s = time.perf_counter() - start
+    cs_t, sn_t = _on(device, cs, torch.float32), _on(device, sn, torch.float32)
+    del cs, sn
+    col = 3
+    e = torch.zeros(2 ** (2 * n + 1), dtype=torch.float32, device=device)
+    e[col] = 1.0
+    psi, times["block_encoding_27q"] = _path(
+        "block_encoding_27q",
+        lambda: simulate_fable_runtime(cs_t, sn_t, n, psi0=e),
+        {"ucry_cs_pair": 1}, paths)
+    recovered = (psi[:size] * (alpha * size)).double().cpu().numpy()
+    expected = np.zeros(size)
+    expected[col] = diag[col]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    simulate_fable_runtime(cs_t, sn_t, n, psi0=e)
+    torch.cuda.synchronize()
+    steady_ms = (time.perf_counter() - start) * 1e3
+    times["block_encoding_27q_steady"] = steady_ms
+    _bar_check("block_encoding_27q_column", float(np.abs(recovered - expected)
+                                                  .max()),
+               5e-4 * max(1.0, alpha), qubits=2 * n + 1,
+               state_mb=psi.numel() * 4 / 2**20, host_params_s=f"{host_s:.2f}",
+               steady_ms=f"{steady_ms:.4f}")
+    del psi
+    calls["block_encoding_27q"] = lambda: simulate_fable_runtime(
+        cs_t, sn_t, n, psi0=e)
+
+    a32 = rng.uniform(-1, 1, (32, 32))
+    circ, alpha32 = fable(a32)
+    basis = torch.zeros((4, 2**circ.num_qubits), dtype=torch.float32,
+                        device=device)
+    basis[torch.arange(4), torch.arange(4)] = 1.0
+    out, _ = _path("fable_dense_32", lambda: simulate(circ, psi0=basis),
+                   {"ucry_cs_pair": 1}, paths)
+    rec = out[:, :32].double().cpu().numpy().T * alpha32 * 32
+    _bar_check("fable_dense_32_columns", float(np.abs(rec - a32[:, :4]).max()),
+               5e-4 * max(1.0, alpha32))
+
+    # e. the gate-by-gate FABLE simulation on K8 and K10
+    a = rng.uniform(-1, 1, (2**DENSE_N, 2**DENSE_N))
+    (psi, alpha), times["fable_pallas_21q"] = _path(
+        "fable_pallas_21q",
+        lambda: pk.simulate_fable_pallas(a, device=device),
+        {"ucry": 1, "h_pair": 2 * DENSE_N}, paths)
+    rec = psi[: 2**DENSE_N].double().cpu().numpy() * alpha * 2**DENSE_N
+    _bar_check("fable_pallas_21q_column0", float(np.abs(rec - a[:, 0]).max()),
+               5e-4 * max(1.0, alpha))
+    oracle = simulate(fable(a)[0], dtype=torch.float32, backend="xla",
+                      device=device)
+    _bar_check("fable_pallas_21q_state_vs_xla",
+               float((psi - oracle).abs().max()), 1e-5)
+    calls["fable_pallas_21q"] = lambda: pk.simulate_fable_pallas(
+        a, device=device)
+
+    # f. the diagonal gate on that state
+    d = _on(device, rng.uniform(-1, 1, psi.shape[-1]), torch.float32)
+    got, times["diag_mult_21q"] = _path(
+        "diag_mult_21q", lambda: pk.diag_mult_pallas(psi, d),
+        {"diag_mult": 1}, paths)
+    want = pk.diag_mult_reference(psi, d)
+    _bar_check("diag_mult_21q", float((got - want).abs().max()),
+               SV_BAR[torch.float32] * float(want.abs().max()))
+    return paths, times, calls
+
+
+def profile_quantum(calls: dict, card: str) -> None:
+    """Phase 11b: one call of each quantum path under torch.profiler:
+    wall ms (host clock, profiler on), device ms, busy share, and the
+    kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - start) * 1e6
+        events = sorted(device_events(prof), key=lambda e: -e[1])
+        busy = sum(u for _, u, _ in events)
+        log("profile", path=name, wall_ms=f"{wall_us / 1e3:.4f}",
+            device_ms=f"{busy / 1e3:.4f}", busy_share=f"{busy / wall_us:.4f}",
+            launches=sum(c for _, _, c in events), card=f"'{card}'")
+        for key, us, count in events[:6]:
+            log("profile", path=name, kernel=key[:70], device_us=f"{us:.3f}",
+                count=count)
+
+
+def statevector_cases(rng, device, q: int) -> dict:
+    """Every statevector kernel on one f32 state of 2^q amplitudes: name
+    -> (kernel call, plain call, one PyTorch call or None, (bound ms, what
+    bounds it)).  Phase 11 checks, times and profiles the same calls."""
+    n = 2**q
+    psi = _on(device, rng.standard_normal(n, dtype=np.float32), torch.float32)
+    th = _on(device, rng.uniform(0, 2 * np.pi, n // 2), torch.float32)
+    c, s = torch.cos(th / 2), torch.sin(th / 2)
+    d = _on(device, rng.uniform(-1, 1, n), torch.float32)
+    qubit = (q - 1) // 2  # the lowest qubit of a FABLE row register
+    # the 2x2 Hadamard on the [outer, 2, inner] view: the contraction the
+    # port's _apply_dense runs for an 'h' gate (TF32 is off)
+    h2 = torch.tensor([[1.0, 1.0], [1.0, -1.0]], dtype=torch.float32,
+                      device=device) / np.sqrt(2.0)
+    # bytes: each input read once, each output written once; operations:
+    # the 2x2 products and sums (K8's sincos left out: it is well under
+    # the bytes' time)
+    return {
+        "ucry_cs_pair": (lambda: pk.ucry_msb_cs_pallas_pair(psi, c, s),
+                         lambda: pk.ucry_msb_cs_reference(psi, c, s), None,
+                         bound(12.0 * n, 3.0 * n)),
+        "ucry": (lambda: pk.ucry_msb_pallas(psi, th),
+                 lambda: pk.ucry_msb_reference(psi, th), None,
+                 bound(10.0 * n, 3.0 * n)),
+        "diag_mult": (lambda: pk.diag_mult_pallas(psi, d),
+                      lambda: pk.diag_mult_reference(psi, d),
+                      lambda: torch.mul(psi, d), bound(12.0 * n, 1.0 * n)),
+        "h_pair": (lambda: pk.h_gate_pallas(psi, qubit),
+                   lambda: pk.h_gate_reference(psi, qubit),
+                   lambda: torch.matmul(
+                       h2, psi.view(-1, 2, 2**qubit)).reshape(-1),
+                   bound(8.0 * n, 2.0 * n)),
+    }
+
+
+def time_statevector(device, card: str) -> dict:
+    """Phase 11: each kernel held to its plain version, then event ms,
+    device µs, plain ms and bound per kernel at 21 qubits (L2) and 27
+    qubits (HBM); returns the table and name -> worst |kernel - plain|."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(SEED + 11)
+    table, worst = {}, {}
+    for q in (21, 27):
+        cases = statevector_cases(rng, device, q)
+        for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            bar = SV_BAR[torch.float32] * float(want.abs().max())
+            if not (got.shape == want.shape and err <= bar):
+                raise AssertionError(f"{name} at 2^{q}: {err} > {bar}")
+            if lib is not None:
+                lib_err = float((lib() - want).abs().max())
+                if not lib_err <= bar:
+                    raise AssertionError(
+                        f"{name}'s library call at 2^{q}: {lib_err} > {bar}")
+            worst[name] = max(worst.get(name, 0.0), err)
+            del got, want
+            k_ms = median_ms(kern)
+            p_ms = median_ms(plain)
+            l_ms = median_ms(lib) if lib is not None else None
+            kern()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    kern()
+                torch.cuda.synchronize()
+            us = [u / c for k, u, c in device_events(prof)
+                  if SV_KERNELS[name][2] in k]
+            dev_us = max(us) if us else None
+            table[(name, q)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    device_us=dev_us)
+            log("time", kernel=name, state=f"2^{q} f32",
+                memory="L2" if q == 21 else "HBM", kernel_ms=f"{k_ms:.4f}",
+                device_us="not measured" if dev_us is None else f"{dev_us:.3f}",
+                plain_ms=f"{p_ms:.4f}",
+                library_ms="null" if l_ms is None else f"{l_ms:.4f}",
+                bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
+                err_over_bar=f"{err / bar:.3f}", card=f"'{card}'")
+        del cases
+        torch.cuda.empty_cache()
+    log("time", note="library_ms null for ucry_cs_pair and ucry: no "
+        "single PyTorch call computes a multiplexed rotation")
+    return table, worst
+
+
 def main() -> int:
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -877,6 +1367,14 @@ def main() -> int:
         train_paths, step_ms = run_training(device, Path(tmp))
         profile_device_time(device, Path(tmp), smi)
     paths.update(train_paths)
+    sv_errs = check_statevector_kernels(device)
+    quantum_paths, quantum_ms, quantum_calls = run_quantum_slice(device)
+    paths.update(quantum_paths)
+    sv_table, sv_timed_errs = time_statevector(device, smi)
+    for name, err in sv_timed_errs.items():
+        sv_errs[name] = max(sv_errs[name], err)
+    profile_quantum(quantum_calls, smi)
+    del quantum_calls
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -907,11 +1405,36 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "at": "x[4096,784], 'high', f32",
         })
+    for name, (tpu, counters, _) in SV_KERNELS.items():
+        t, t21 = sv_table[(name, 27)], sv_table[(name, 21)]
+        by_path = {p: sum(c[k] for k in counters) for p, c in paths.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "qkan_implementation_tpu_torch/csrc/statevector.cu",
+            "replaces": f"qkan_implementation_tpu/{tpu}",
+            "launches": sum(by_path.values()),
+            "launches_by_path": {p: n for p, n in by_path.items() if n},
+            "max_abs_err": sv_errs[name],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_us": t["bound_ms"] * 1e3,
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "device_us": t["device_us"],
+            "at": "psi[2^27] f32 (HBM)",
+            "at_21_qubits_l2": {k: t21[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "device_us")},
+        })
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"{name} was never launched on a main path")
     for name in sources:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "
           f"card='{smi}'", flush=True)
+    print(f"quantum_ms {json.dumps(quantum_ms)} card='{smi}'", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,24 +1,30 @@
-"""QKAN on PyTorch: the FixedKAN serving and training paths for CUDA
-(Hopper, sm_90a).
+"""QKAN on PyTorch: the FixedKAN serving and training paths and the
+quantum runtime, for CUDA (Hopper, sm_90a).
 
 A second package beside ``qkan_implementation_tpu`` (the JAX reference),
 with the same module tree, so every module here has one named
 counterpart there.  It imports torch and numpy only.
 
-- ``ops``      -- Chebyshev transforms and the fused layer in both
+- ``ops``      -- Chebyshev transforms, the QKAN step pipeline
+                  (``qkan_layer``), the quantum-mode layer computed through
+                  the simulator (``quantum``), and the fused layer in both
                   schedules, forward and backward as hand-written CUDA
                   kernels (``csrc/``) with plain torch versions for CPU
                   tensors.
+- ``encoding`` -- FABLE block encodings as gate-IR circuits (numpy).
+- ``sim``      -- the statevector engine: gate IR, simulation, register
+                  and ladder fusion, measurement, and the streaming gate
+                  kernels (``sim.pallas_kernels``, ``csrc/statevector.cu``).
 - ``models``   -- FixedKAN config, forward (``'xla'`` fold and the
                   ``'fused'`` / ``'fused_dw'`` kernel backends), gradient
                   training and npz checkpoints in the JAX package's
-                  format.
+                  format; the QSVT neuron.
 - ``serving``  -- bucketed batched predictor and a stdlib HTTP server.
 - ``utils``    -- device selection and parameter conversion to and from
                   numpy.
 
-Structure search, the quantum runtime and the multi-device code are not
-ported yet (ROADMAP.md, queues 1 and 2).
+Structure search and the multi-device code (the sharded statevector
+among it) are not ported yet (ROADMAP.md, queues 1 and 2).
 """
 
 __version__ = "0.1.0"

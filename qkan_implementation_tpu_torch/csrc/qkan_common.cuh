@@ -1,6 +1,8 @@
-// Helpers shared by the fused-layer kernels (fused_dw_fwd.cu,
-// fused_dw_bwd.cu): bf16 rounding, loads and stores in x's dtype, and one
-// step of the Chebyshev recurrence rounded as torch rounds it.
+// Helpers shared by the package's kernels: for the fused-layer kernels
+// (fused_dw_fwd.cu, fused_dw_bwd.cu) bf16 rounding, loads and stores in x's
+// dtype, and one step of the Chebyshev recurrence rounded as torch rounds
+// it; for the streaming kernels (statevector.cu) the grid of a
+// grid-stride pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,6 +36,21 @@ __device__ __forceinline__ float cheb_next(float two_t, float c, float p) {
 // T padded to the register tile: 4, 8, 12, 16, 32 or 64.
 inline int pad_t(int T) {
   return T <= 4 ? 4 : T <= 8 ? 8 : T <= 12 ? 12 : T <= 16 ? 16 : T <= 32 ? 32 : 64;
+}
+
+// Blocks of `threads` for a grid-stride pass over `total` items: one item a
+// thread up to `per_sm` resident blocks on every SM of the current device,
+// then each thread loops.
+inline int stream_grid(long long total, int threads, int per_sm = 8) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    sms = 132;
+  }
+  const long long want = (total + threads - 1) / threads;
+  const long long cap = (long long)sms * per_sm;
+  return (int)(want < cap ? want : cap);
 }
 
 }  // namespace qkan

@@ -1,7 +1,10 @@
-"""Chebyshev transforms and the fused layers, on torch tensors.
+"""Chebyshev transforms, the QKAN step pipeline and the fused layers, on
+torch tensors.
 
-The JAX package's ``ops`` also exports the ``qkan_layer`` step pipeline
-and ``kan_train_step_fused``; those are not ported yet (ROADMAP.md).
+The quantum-mode layer is ``ops.quantum``.  Not ported yet (ROADMAP.md):
+the int8 serving recipes of ``qkan_layer``
+(``qkan_layer_forward_batched_int8``, Queue 1 item 4) and
+``kan_train_step_fused`` (K5, Queue 2).
 """
 
 from qkan_implementation_tpu_torch.ops.chebyshev import (
@@ -13,6 +16,14 @@ from qkan_implementation_tpu_torch.ops.chebyshev import (
     dilated_chebyshev_diag,
     check_unit_interval,
     check_weight_magnitudes,
+)
+from qkan_implementation_tpu_torch.ops.qkan_layer import (
+    weighted_chebyshev_diag,
+    lcu_combine_diag,
+    sum_step,
+    qkan_layer_forward,
+    qkan_layer_forward_batched,
+    qkan_intermediates,
 )
 from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused,
@@ -32,6 +43,12 @@ __all__ = [
     "dilated_chebyshev_diag",
     "check_unit_interval",
     "check_weight_magnitudes",
+    "weighted_chebyshev_diag",
+    "lcu_combine_diag",
+    "sum_step",
+    "qkan_layer_forward",
+    "qkan_layer_forward_batched",
+    "qkan_intermediates",
     "kan_layer_fused",
     "kan_layer_fused_bwd_reference",
     "kan_layer_fused_dw",

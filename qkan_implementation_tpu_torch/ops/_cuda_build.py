@@ -150,11 +150,34 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_bwd_partial_sum.argtypes = [
                 p, ll, p, i, i, i, i, i, p,
             ]
+            # statevector kernels (csrc/statevector.cu)
+            lib.qkan_ucry_cs.argtypes = [p, p, p, p, ll, i, ll, i, i, p]
+            lib.qkan_ucry.argtypes = [p, p, p, ll, i, ll, i, i, p]
+            lib.qkan_diag_mult.argtypes = [p, p, p, ll, i, ll, i, p]
+            lib.qkan_h_pair.argtypes = [p, p, ll, i, i, p]
             for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
                           "qkan_fused_dw_bwd", "qkan_fused_bwd",
-                          "qkan_fused_bwd_partial_sum"):
+                          "qkan_fused_bwd_partial_sum", "qkan_ucry_cs",
+                          "qkan_ucry", "qkan_diag_mult", "qkan_h_pair"):
                 getattr(lib, entry).restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error (0 is success)."""
+    if err != 0:
+        msg = lib.qkan_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
+
+
+# server threads launch concurrently: the counts' read-modify-write is locked
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def count_launches(owner, attr: str, n: int = 1) -> None:
+    """Add ``n`` to the launch count ``owner.attr``."""
+    with _LAUNCHES_LOCK:
+        setattr(owner, attr, getattr(owner, attr) + n)

@@ -44,16 +44,19 @@ and every recurrence op to bf16.  Then:
 
 from __future__ import annotations
 
-import threading
-
 import torch
 from torch.autograd.function import once_differentiable
 
+from qkan_implementation_tpu_torch.ops._cuda_build import (
+    count_launches as _count,
+    raise_on_error as _raise_on_error,
+)
+from qkan_implementation_tpu_torch.utils.platform import (
+    tensor_device_type as _device_of,
+)
+
 _MAX_DP1 = 32
 _MAX_T = 64
-
-# server threads launch concurrently: the counts' read-modify-write is locked
-_LAUNCHES_LOCK = threading.Lock()
 
 
 def _resolve_mode(precision: str) -> str:
@@ -234,17 +237,6 @@ def _check_layer_args(x, w2, dp1):
     return b, n, t_dim
 
 
-def _raise_on_error(lib, err: int, name: str) -> None:
-    if err != 0:
-        msg = lib.qkan_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} ({err})")
-
-
-def _count(counter_owner, attr: str, n: int = 1) -> None:
-    with _LAUNCHES_LOCK:
-        setattr(counter_owner, attr, getattr(counter_owner, attr) + n)
-
-
 # the counter each C entry adds to when its kernel launches (filled in
 # below, once the counters' owners exist)
 _COUNTER_OF: dict = {}
@@ -351,12 +343,6 @@ def _launch_bwd(entry, x, w2, g, dp1, apply_tanh, extra, want_dx):
     dx, ws = _bwd_pass(entry, x, w2, g, dp1, apply_tanh, extra, want_dx)
     b, n = x.shape
     return dx, fused_bwd_partial_sum(ws, b, n, dp1, w2.shape[1], want_dx)
-
-
-def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {x.device}: 'cpu' or 'cuda'")
-    return x.device.type
 
 
 # -- degree-wise layer (K1 forward, K2 backward) --------------------------

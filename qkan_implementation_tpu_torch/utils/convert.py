@@ -1,10 +1,13 @@
-"""FixedKAN parameters between numpy and torch.
+"""Parameters and states between numpy and torch.
 
-The JAX package's parameters are a list of per-layer dicts
+The JAX package's FixedKAN parameters are a list of per-layer dicts
 (``degrees``, ``coefficients [out, in, D+1, T]``, ``horizontal_weights``);
-as numpy arrays they are what its npz checkpoints hold.  These two
-functions carry that list across to torch tensors and back, keys
-unchanged, so the two packages can run on the same parameters.
+as numpy arrays they are what its npz checkpoints hold.
+``params_from_numpy`` / ``params_to_numpy`` carry that list across to
+torch tensors and back, keys unchanged, so the two packages can run on the
+same parameters.  ``array_from_numpy`` / ``array_to_numpy`` do the same
+for one array: the quantum layer's [D+1, N*K] weights, inputs and
+statevectors.
 """
 
 from __future__ import annotations
@@ -37,3 +40,15 @@ def params_to_numpy(params) -> list:
         {key: value.detach().cpu().numpy() for key, value in layer.items()}
         for layer in params
     ]
+
+
+def array_from_numpy(a, device, dtype=None) -> torch.Tensor:
+    """One array -> a tensor on ``device`` (a copy; ``dtype`` casts, None
+    keeps the array's dtype)."""
+    t = torch.from_numpy(np.array(a)).to(device)
+    return t if dtype is None else t.to(dtype)
+
+
+def array_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a numpy array on the host (detached)."""
+    return t.detach().cpu().numpy()

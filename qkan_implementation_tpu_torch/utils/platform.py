@@ -31,3 +31,11 @@ def resolve_device(name: str | torch.device) -> torch.device:
             f"{torch.cuda.device_count()} CUDA device(s) are present"
         )
     return device
+
+
+def tensor_device_type(x: torch.Tensor) -> str:
+    """'cpu' or 'cuda': where a kernel wrapper sends ``x`` (its plain
+    version or its kernel); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}: 'cpu' or 'cuda'")
+    return x.device.type

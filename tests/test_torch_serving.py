@@ -228,6 +228,12 @@ def test_port_imports_without_jax():
         "import qkan_implementation_tpu_torch.ops._cuda_build\n"
         "import qkan_implementation_tpu_torch.serving\n"
         "import qkan_implementation_tpu_torch.utils\n"
+        "import qkan_implementation_tpu_torch.sim\n"
+        "import qkan_implementation_tpu_torch.sim.pallas_kernels\n"
+        "import qkan_implementation_tpu_torch.encoding\n"
+        "import qkan_implementation_tpu_torch.ops.qkan_layer\n"
+        "import qkan_implementation_tpu_torch.ops.quantum\n"
+        "import qkan_implementation_tpu_torch.models.qsvt_neuron\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('qkan_implementation_tpu.')"
         " or m == 'qkan_implementation_tpu']\n"
