@@ -1,5 +1,5 @@
-"""Smoke run of the torch port's FixedKAN serving and training paths on
-one CUDA card.
+"""Smoke run of the torch port's FixedKAN serving and training paths, its
+quantum runtime and the fused train step on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -87,14 +87,39 @@ Phases, each reported on its own lines:
    B = 256, a train step at B = 8, the 27-qubit block encoding, the
    21-qubit gate-by-gate simulation) under ``torch.profiler``: device
    busy share and time by kernel.
+12. the fused single-layer train step (K5, ``kan_train_step_fused``):
+   a. K5 against its plain version on the card, twice on the same inputs
+      (the same bits both times): the headline shape (x [262144, 16],
+      dp1 8, T 16, no tanh, 'sumsq'), the flagship layer 0 (B 64 and
+      4096, in 784, dp1 6, T 10, tanh, 'mse' and 'sumsq'), a ragged
+      narrow case (B 37, in 10), a bf16 x at layer 0 and dp1 = 1.  dW
+      within the BARS, the loss within rtol 1e-4;
+   b. the headline QKAN-layer step at full width (N = K = 16, degree 7,
+      B = 262144): the weights [8, 256] folded by ``weights_to_m3`` into
+      w2 [128, 16], whose output must match ``qkan_layer_forward_batched``
+      within 1e-5 max; the step's loss and dW against float64 autograd of
+      sum((basis(x) @ w2)^2) (loss rtol 1e-4, dW 1e-4 max|dW|); then 20
+      steps w2 <- w2 - 1e-7 dW with x rotating between the batch and its
+      reverse (benchmarks/fused_retune_probe.py's chain), the final w2
+      within 1e-4 max|w2| of the same steps with the float64 dW, and K5
+      and the dW pass launched 20 times each;
+   c. K5's event ms, device µs and plain ms beside its bound, and one step
+      done by the K3 + K4 pair (``kan_layer_fused`` and its backward,
+      ``sum(out**2)`` by torch) and one done as torch ops (autograd
+      through ``qkan_layer_forward_batched``), at the headline shape and
+      at layer 0 with B = 4096 and 'mse' (there the torch-ops step is
+      autograd through ``kan_layer_fused_reference``); and the device
+      time of each of the three by kernel, from ``torch.profiler`` over
+      10 calls.
 
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
-each path of phase 10) and read just after; launches made to compare kernels with their plain
-versions are not counted.  The last line is ``{"ok": true, "device":
-{...}}``; the line before it is the kernels' JSON record, and the lines
-before that the quantum slice's and the train step's times.  Any failed check raises and the script
-exits non-zero without those lines.
+each path of phase 10, the headline step) and read just after; launches
+made to compare kernels with their plain versions are not counted.  The
+last line is ``{"ok": true, "device": {...}}``; the line before it is
+the kernels' JSON record, and the lines before that the headline step's
+times (JSON), the quantum slice's and the train step's.  Any failed check
+raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -102,8 +127,9 @@ FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W).
 Operations count the contractions' multiply-adds, 2 per FMA, and one per
 add of the partial sums; the elementwise recurrences are left out (under
 10% of the FMAs at dp1 = 6).  No single PyTorch call computes tanh ->
-Chebyshev -> contraction or its gradient, so ``library_ms`` is null for
-those; for the partial-sum pass it is ``torch.sum`` over the row blocks.
+Chebyshev -> contraction, its gradient or the train step, so
+``library_ms`` is null for those; for the partial-sum pass it is
+``torch.sum`` over the row blocks.
 """
 
 from __future__ import annotations
@@ -124,7 +150,11 @@ import torch
 
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
 from qkan_implementation_tpu_torch.models.fixed_kan import kan_apply
+from qkan_implementation_tpu_torch.experimental.pallas_layer import (
+    weights_to_m3,
+)
 from qkan_implementation_tpu_torch.ops import _cuda_build
+from qkan_implementation_tpu_torch.ops.chebyshev import chebyshev_basis
 from qkan_implementation_tpu_torch.ops.fused_layer import (
     _bwd_pass,
     _fused_bwd,
@@ -137,6 +167,8 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused_dw_bwd_reference,
     kan_layer_fused_dw_reference,
     kan_layer_fused_reference,
+    kan_train_step_fused,
+    kan_train_step_fused_reference,
 )
 from qkan_implementation_tpu_torch.encoding import fable, fable_runtime_params
 from qkan_implementation_tpu_torch.ops.qkan_layer import (
@@ -187,6 +219,7 @@ COUNTERS = [
     ("fused_fwd", kan_layer_fused, "launches"),
     ("fused_bwd", kan_layer_fused, "bwd_launches"),
     ("fused_bwd_partial_sum", fused_bwd_partial_sum, "launches"),
+    ("fused_step", kan_train_step_fused, "launches"),
     ("ucry_cs_pair", pk.ucry_msb_cs_pallas_pair, "launches"),
     ("ucry_cs_pair_bwd", pk.ucry_msb_cs_pallas_pair, "bwd_launches"),
     ("ucry_cs", pk.ucry_msb_cs_pallas, "launches"),
@@ -1047,7 +1080,7 @@ def _path(name: str, fn, expected: dict, paths: dict):
     if counts != want:
         raise AssertionError(f"{name}: launches {counts} != {want}")
     paths[name] = counts
-    log("quantum", path=name, ms=f"{ms:.4f}",
+    log("path", path=name, ms=f"{ms:.4f}",
         launches={k: v for k, v in counts.items() if v})
     return out, ms
 
@@ -1333,6 +1366,266 @@ def time_statevector(device, card: str) -> dict:
     return table, worst
 
 
+# -- phase 12: the fused single-layer train step (K5) -------------------------
+
+# the headline QKAN-layer step of benchmarks/fused_retune_probe.py
+# (headline_sweep): bench.py's rotating-pool shape, no tanh, 'sumsq'
+HN = HK = 16
+HDEG = 7
+HB = 262144
+HLR = 1e-7
+HSTEPS = 20
+STEP_RTOL = 1e-4  # the loss, kernel against plain and against float64
+FOLD_BAR = 1e-5   # the fold's out against qkan_layer_forward_batched
+
+
+def headline_inputs(device):
+    """The probe's inputs: x uniform in [-1, 1) and its reverse (the
+    rotating pool), the layer weights [D+1, N*K] uniform in [-1, 1)."""
+    rng = np.random.default_rng(SEED + 12)
+    x = torch.from_numpy(rng.uniform(-1, 1, (HB, HN)).astype(np.float32))
+    w = torch.from_numpy(
+        rng.uniform(-1, 1, (HDEG + 1, HN * HK)).astype(np.float32)
+    )
+    x = x.to(device)
+    return (x, x.flip(0).contiguous()), w.to(device)
+
+
+def step_cases(device) -> list:
+    """(name, args of kan_train_step_fused) at the shapes of phase 12a."""
+    rng = np.random.default_rng(SEED + 13)
+    (hx, _), hw = headline_inputs(device)
+    h_w2 = weights_to_m3(hw, HN, HK).reshape(-1, HK).contiguous()
+    cases = [("headline", (hx, h_w2, HDEG + 1, None, "sumsq", False))]
+
+    def add(name, b, n, dp1, loss, x_dtype=torch.float32):
+        x = torch.from_numpy(rng.uniform(-2, 2, (b, n)).astype(np.float32))
+        w2 = torch.from_numpy(rng.normal(
+            0, 1 / np.sqrt(dp1 * n), (dp1 * n, T)).astype(np.float32))
+        y = torch.from_numpy(rng.normal(size=(b, T)).astype(np.float32))
+        cases.append((name, (x.to(device, x_dtype), w2.to(device),
+                             dp1, y.to(device) if loss == "mse" else None,
+                             loss, True)))
+
+    for b in (64, 4096):
+        for loss in ("mse", "sumsq"):
+            add(f"layer0_B{b}_{loss}", b, 784, DP1, loss)
+    for loss in ("mse", "sumsq"):
+        add(f"ragged_B37_in10_{loss}", 37, 10, DP1, loss)
+    add("layer0_B4096_mse_bf16_x", 4096, 784, DP1, "mse", torch.bfloat16)
+    add("dp1_1_B4096_sumsq", 4096, 784, 1, "sumsq")
+    return cases
+
+
+def check_step_kernel(device) -> float:
+    """Phase 12a: K5 against its plain version on the card, twice on the
+    same inputs (the same bits); returns the worst f32 dW error."""
+    worst = 0.0
+    for name, args in step_cases(device):
+        loss, dw = kan_train_step_fused(*args)
+        again = kan_train_step_fused(*args)
+        want_loss, want_dw = kan_train_step_fused_reference(*args)
+        torch.cuda.synchronize()
+        x = args[0]
+        where = dict(case=name, x=f"[{x.shape[0]},{x.shape[1]}]",
+                     dtype=str(x.dtype).split(".")[-1])
+        err, _ = held("fused_step.dw", dw, want_dw, "high", **where)
+        if x.dtype == torch.float32:
+            worst = max(worst, err)
+        rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+        same = torch.equal(loss, again[0]) and torch.equal(dw, again[1])
+        log("kernel", name="fused_step.loss", loss=f"{float(loss):.8e}",
+            rel_err=f"{rel:.3e}", bar=STEP_RTOL, same_bits_twice=same,
+            **where)
+        if not (loss.shape == () and rel <= STEP_RTOL):
+            raise AssertionError(f"fused_step loss {name}: {rel}")
+        if not same:
+            raise AssertionError(f"fused_step {name}: two runs differ")
+    return worst
+
+
+def step_f64(x, w2):
+    """(loss, dW) of sum((basis(x) @ w2)^2) by float64 autograd: the JAX
+    test's ``fwd`` with no tanh."""
+    w64 = w2.detach().double().requires_grad_()
+    bas = chebyshev_basis(x.double(), w2.shape[0] // x.shape[1] - 1,
+                          clip=False)
+    out = bas.transpose(1, 2).reshape(x.shape[0], -1) @ w64
+    loss = torch.sum(out**2)
+    (dw,) = torch.autograd.grad(loss, [w64])
+    return loss.detach(), dw
+
+
+def run_headline(device, paths: dict) -> dict:
+    """Phase 12b: the fold, the start against float64 autograd, then
+    HSTEPS steps w2 <- w2 - lr dW on the rotating pool with the counts at
+    0; returns the path's host ms."""
+    pool, w = headline_inputs(device)
+    w2 = weights_to_m3(w, HN, HK).reshape(-1, HK).contiguous()
+    fold_out = kan_layer_fused_reference(pool[0], w2, HDEG + 1, False)
+    want = qkan_layer_forward_batched(pool[0], w, HN, HK)
+    err = float((fold_out - want).abs().max())
+    bar = FOLD_BAR * float(want.abs().max())
+    log("step", check="fold_vs_qkan_layer_forward_batched",
+        max_abs_err=f"{err:.3e}", bar=f"{bar:.3e}")
+    if not err <= bar:
+        raise AssertionError(f"the fold's out: {err} > {bar}")
+
+    loss, dw = kan_train_step_fused(pool[0], w2, HDEG + 1, apply_tanh=False)
+    loss64, dw64 = step_f64(pool[0], w2)
+    rel = abs(float(loss) - float(loss64)) / float(loss64)
+    err = float((dw.double() - dw64).abs().max())
+    bar = STEP_RTOL * float(dw64.abs().max())
+    log("step", check="start_vs_float64_autograd", loss=f"{float(loss):.8e}",
+        loss_rel=f"{rel:.3e}", dw_max_abs_err=f"{err:.3e}",
+        dw_bar=f"{bar:.3e}")
+    if not (rel <= STEP_RTOL and err <= bar):
+        raise AssertionError(f"headline start: loss {rel}, dW {err} > {bar}")
+
+    def train():
+        v, losses = w2.clone(), []
+        for i in range(HSTEPS):
+            loss_i, dw_i = kan_train_step_fused(pool[i % 2], v, HDEG + 1,
+                                                apply_tanh=False)
+            v = v - HLR * dw_i
+            losses.append(loss_i)
+        return v, torch.stack(losses)
+
+    (final, losses), ms = _path(
+        "headline_step", train,
+        {"fused_step": HSTEPS, "fused_bwd_partial_sum": HSTEPS}, paths)
+    ref = w2.double()
+    for i in range(HSTEPS):
+        ref = ref - HLR * step_f64(pool[i % 2], ref)[1]
+    losses = losses.double().cpu().numpy()
+    err = float((final.double() - ref).abs().max())
+    bar = STEP_RTOL * float(ref.abs().max())
+    moved = float((ref - w2.double()).abs().max())
+    log("step", path="headline_step", steps=HSTEPS, lr=HLR,
+        ms_per_step=f"{ms / HSTEPS:.4f}",
+        loss_first=f"{losses[0]:.8e}", loss_last=f"{losses[-1]:.8e}",
+        w2_max_abs_err=f"{err:.3e}", bar=f"{bar:.3e}",
+        w2_moved=f"{moved:.3e}")
+    if not (np.all(np.isfinite(losses)) and err <= bar):
+        raise AssertionError(f"headline steps: w2 {err} > {bar}")
+    if not losses[-2] < losses[0]:  # same batch as step 0: it must fall
+        raise AssertionError(f"headline steps: loss did not fall {losses}")
+    return ms
+
+
+def step_timing_cases(device) -> dict:
+    """Phase 12c: per shape, (K5 call, plain call, the K3 + K4 pair's
+    step, the torch-ops step, (bound ms, what bounds it))."""
+    cases = {}
+    pool, w = headline_inputs(device)
+    x = pool[0]
+    w2 = weights_to_m3(w, HN, HK).reshape(-1, HK).contiguous()
+    w2_leaf = w2.clone().requires_grad_()
+    w_leaf = w.clone().requires_grad_()
+
+    def pair_headline():
+        out = kan_layer_fused(x, w2_leaf, HDEG + 1, False)
+        return torch.autograd.grad(torch.sum(out**2), [w2_leaf])
+
+    def torch_headline():
+        out = qkan_layer_forward_batched(x, w_leaf, HN, HK)
+        return torch.autograd.grad(torch.sum(out**2), [w_leaf])
+
+    b, n, dp1, t_dim = HB, HN, HDEG + 1, HK
+    cases["headline"] = (
+        lambda: kan_train_step_fused(x, w2, dp1, apply_tanh=False),
+        lambda: kan_train_step_fused_reference(x, w2, dp1, apply_tanh=False),
+        pair_headline, torch_headline,
+        bound(4.0 * (b * n + 2 * dp1 * n * t_dim + 1),
+              2 * 2.0 * b * n * (dp1 - 1) * t_dim),
+    )
+
+    rng = np.random.default_rng(SEED + 14)
+    b, n = 4096, SHAPE[0]
+    xf, w2f = layer_inputs(rng, b, n, True, "high", device)
+    y = torch.from_numpy(rng.normal(size=(b, T)).astype(np.float32)).to(device)
+    w2f_leaf = w2f.clone().requires_grad_()
+
+    def pair_layer0():
+        out = kan_layer_fused(xf, w2f_leaf, DP1)
+        return torch.autograd.grad(torch.mean((out - y) ** 2), [w2f_leaf])
+
+    def torch_layer0():
+        out = kan_layer_fused_reference(xf, w2f_leaf, DP1)
+        return torch.autograd.grad(torch.mean((out - y) ** 2), [w2f_leaf])
+
+    cases["layer0_B4096_mse"] = (
+        lambda: kan_train_step_fused(xf, w2f, DP1, y=y, loss="mse"),
+        lambda: kan_train_step_fused_reference(xf, w2f, DP1, y=y, loss="mse"),
+        pair_layer0, torch_layer0,
+        bound(4.0 * (b * n + b * T + 2 * DP1 * n * T + 1),
+              2 * 2.0 * b * n * (DP1 - 1) * T),
+    )
+    return cases
+
+
+def device_per_call(fn, calls: int = 10) -> list:
+    """(kernel, device µs a call) of ``fn``, largest first, from
+    torch.profiler over ``calls`` calls: each kernel's mean time a launch
+    times its launches a call, so a launch the profiler drops at the start
+    of its window does not count against the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((k, u / c * max(1, round(c / calls)))
+                   for k, u, c in device_events(prof) if c),
+                  key=lambda e: -e[1])
+
+
+def time_step(device, card: str) -> dict:
+    """Phase 12c: K5's event ms, device µs and plain ms beside its bound,
+    and one step of the K3 + K4 pair and of torch ops, each with its
+    device time by kernel, per shape."""
+    table = {}
+    for shape, (kern, plain, pair, ops, (b_ms, b_by)) in \
+            step_timing_cases(device).items():
+        times = {k: median_ms(fn, reps=30) for k, fn in (
+            ("ms", kern), ("plain_ms", plain), ("pair_ms", pair),
+            ("torch_ops_ms", ops))}
+        device_us = {}
+        for step, fn in (("fused_step", kern), ("pair_k3_k4", pair),
+                         ("torch_ops", ops)):
+            kernels = device_per_call(fn)
+            device_us[step] = sum(us for _, us in kernels) if kernels else None
+            log("profile", shape=shape, step=step,
+                device_us_call=("not measured" if not kernels
+                                else f"{device_us[step]:.3f}"),
+                card=f"'{card}'")
+            for key, us in kernels[:6]:
+                log("profile", shape=shape, step=step, kernel=key[:60],
+                    device_us=f"{us:.3f}")
+            if step == "fused_step":
+                step_us = [us for k, us in kernels if "fused_step_kernel" in k]
+        table[shape] = dict(
+            times, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            device_us=step_us[0] if step_us else None,
+            device_us_call=device_us["fused_step"],
+            pair_device_us=device_us["pair_k3_k4"],
+            torch_ops_device_us=device_us["torch_ops"])
+        log("time", kernel="fused_step", shape=shape,
+            kernel_ms=f"{times['ms']:.4f}",
+            device_us=("not measured" if not step_us
+                       else f"{step_us[0]:.3f}"),
+            plain_ms=f"{times['plain_ms']:.4f}",
+            pair_k3_k4_ms=f"{times['pair_ms']:.4f}",
+            torch_ops_ms=f"{times['torch_ops_ms']:.4f}",
+            bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by, card=f"'{card}'")
+    log("time", note="library_ms null for fused_step: no single PyTorch "
+        "call computes the train step")
+    return table
+
+
 def main() -> int:
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -1375,6 +1668,9 @@ def main() -> int:
         sv_errs[name] = max(sv_errs[name], err)
     profile_quantum(quantum_calls, smi)
     del quantum_calls
+    errs["fused_step"] = check_step_kernel(device)
+    headline_ms = run_headline(device, paths)
+    step_table = time_step(device, smi)
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -1429,12 +1725,35 @@ def main() -> int:
         })
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was never launched on a main path")
-    for name in sources:
+    t, t0 = step_table["headline"], step_table["layer0_B4096_mse"]
+    kernels.append({
+        "name": "fused_step",
+        "route": "cuda",
+        "source": "qkan_implementation_tpu_torch/csrc/fused_dw_bwd.cu",
+        "replaces": "qkan_implementation_tpu/ops/fused_layer.py:297",
+        "launches": sum(c["fused_step"] for c in paths.values()),
+        "launches_by_path": {p: c["fused_step"] for p, c in paths.items()
+                             if c["fused_step"]},
+        "max_abs_err": errs["fused_step"],
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "device_us", "device_us_call",
+                             "pair_ms", "pair_device_us", "torch_ops_ms",
+                             "torch_ops_device_us")},
+        "bound_us": t["bound_ms"] * 1e3,
+        "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, T {HK}, no tanh, 'sumsq', f32",
+        "at_layer0_B4096_mse": t0,
+    })
+    for name in [*sources, "fused_step"]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "
           f"card='{smi}'", flush=True)
     print(f"quantum_ms {json.dumps(quantum_ms)} card='{smi}'", flush=True)
+    print(json.dumps({"headline_step": {
+        "path_ms": headline_ms, "steps": HSTEPS, "batch": HB, **{
+            f"{shape}_{k}": v for shape, row in step_table.items()
+            for k, v in row.items() if k.endswith(("ms", "_us"))},
+        "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,8 +3,7 @@ torch tensors.
 
 The quantum-mode layer is ``ops.quantum``.  Not ported yet (ROADMAP.md):
 the int8 serving recipes of ``qkan_layer``
-(``qkan_layer_forward_batched_int8``, Queue 1 item 4) and
-``kan_train_step_fused`` (K5, Queue 2).
+(``qkan_layer_forward_batched_int8``, Queue 1 item 5).
 """
 
 from qkan_implementation_tpu_torch.ops.chebyshev import (
@@ -32,6 +31,8 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused_dw_bwd_reference,
     kan_layer_fused_dw_reference,
     kan_layer_fused_reference,
+    kan_train_step_fused,
+    kan_train_step_fused_reference,
 )
 
 __all__ = [
@@ -55,4 +56,6 @@ __all__ = [
     "kan_layer_fused_dw_bwd_reference",
     "kan_layer_fused_dw_reference",
     "kan_layer_fused_reference",
+    "kan_train_step_fused",
+    "kan_train_step_fused_reference",
 ]

@@ -150,6 +150,12 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_bwd_partial_sum.argtypes = [
                 p, ll, p, i, i, i, i, i, p,
             ]
+            lib.qkan_fused_step_workspace_bytes.argtypes = [i, i, i, i]
+            lib.qkan_fused_step_workspace_bytes.restype = ll
+            f = ctypes.c_float
+            lib.qkan_fused_step.argtypes = [
+                p, p, p, p, p, ll, i, i, i, i, i, i, f, f, p,
+            ]
             # statevector kernels (csrc/statevector.cu)
             lib.qkan_ucry_cs.argtypes = [p, p, p, p, ll, i, ll, i, i, p]
             lib.qkan_ucry.argtypes = [p, p, p, ll, i, ll, i, i, p]
@@ -157,8 +163,9 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_h_pair.argtypes = [p, p, ll, i, i, p]
             for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
                           "qkan_fused_dw_bwd", "qkan_fused_bwd",
-                          "qkan_fused_bwd_partial_sum", "qkan_ucry_cs",
-                          "qkan_ucry", "qkan_diag_mult", "qkan_h_pair"):
+                          "qkan_fused_bwd_partial_sum", "qkan_fused_step",
+                          "qkan_ucry_cs", "qkan_ucry", "qkan_diag_mult",
+                          "qkan_h_pair"):
                 getattr(lib, entry).restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p

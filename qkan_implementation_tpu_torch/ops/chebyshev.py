@@ -18,6 +18,14 @@ import torch
 UNIT_EPS = 1e-8
 
 
+def _clip_unit(x: torch.Tensor) -> torch.Tensor:
+    """clip(x, -1, 1) by maximum/minimum, not ``torch.clamp``: at a tie
+    they pass half the gradient, as ``jnp.clip`` does (clamp passes all)."""
+    lo = torch.tensor(-1.0, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(1.0, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
 def _as_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
@@ -47,7 +55,7 @@ def chebyshev_t(x: torch.Tensor, degree: int) -> torch.Tensor:
     """T_degree(x) = cos(degree * arccos(clip(x, -1, 1))), elementwise."""
     if degree < 0:
         raise ValueError("Degree must be a non-negative integer.")
-    x = torch.clamp(x, -1.0, 1.0)
+    x = _clip_unit(x)
     return torch.cos(degree * torch.arccos(x))
 
 
@@ -68,7 +76,7 @@ def chebyshev_basis(
     if max_degree < 0:
         raise ValueError("Degree must be a non-negative integer.")
     if clip:
-        x = torch.clamp(x, -1.0, 1.0)
+        x = _clip_unit(x)
     cols = [torch.ones_like(x)]
     if max_degree >= 1:
         cols.append(x)

@@ -1,8 +1,10 @@
 """Fused FixedKAN layer: tanh -> Chebyshev recurrence -> matmul, and back.
 
 Counterpart of ``qkan_implementation_tpu.ops.fused_layer``: the v2
-degree-wise schedule ``kan_layer_fused_dw`` and the v1 ``kan_layer_fused``.
-Both compute the layer
+degree-wise schedule ``kan_layer_fused_dw``, the v1 ``kan_layer_fused``
+and the one-kernel single-layer train step ``kan_train_step_fused``
+(forward, loss and dW with the basis built once; no dx).  The layers
+compute
 
     out = colsum(W_0) + sum_{d>=1} T_d(t) @ W_d,    t = tanh(x) (or x),
 
@@ -470,3 +472,126 @@ _COUNTER_OF.update({
     "qkan_fused_fwd": (kan_layer_fused, "launches"),
     "qkan_fused_bwd": (kan_layer_fused, "bwd_launches"),
 })
+
+
+# -- fused single-layer train step (K5) -----------------------------------
+
+
+def _check_step_args(x, y, loss, precision) -> None:
+    """The ValueErrors of the JAX wrapper, and an empty batch."""
+    if loss not in ("sumsq", "mse"):
+        raise ValueError(f"unknown loss {loss!r}: 'sumsq' or 'mse'")
+    if loss == "mse" and y is None:
+        raise ValueError("loss='mse' needs targets y")
+    _check_v1_precision(precision)
+    if x.dim() != 2 or x.shape[0] == 0:
+        raise ValueError(
+            f"x must be [B, in] with B >= 1, got {tuple(x.shape)}"
+        )
+
+
+def _step_scales(b: int, t_dim: int, loss: str) -> tuple:
+    """(g = scale * err, loss = scale * sum err^2): 2 and 1 for 'sumsq',
+    2 / (B*T) and 1 / (B*T) for 'mse'."""
+    if loss == "sumsq":
+        return 2.0, 1.0
+    inv_b = 1.0 / float(b * t_dim)
+    return 2.0 * inv_b, inv_b
+
+
+def kan_train_step_fused_reference(
+    x: torch.Tensor,
+    w2: torch.Tensor,
+    dp1: int,
+    y: torch.Tensor | None = None,
+    loss: str = "sumsq",
+    apply_tanh: bool = True,
+    precision: str = "default",
+) -> tuple:
+    """Plain torch version of the fused train step: the v1 forward at its
+    rounding points (the basis in x's dtype, w2 cast to it), then err, g
+    and the loss in f32, and dW = basis^T @ g with the basis widened to
+    f32, as the v1 backward takes it.  Returns ``(loss, dw)``: a 0-dim f32
+    tensor and [dp1*in, T] f32."""
+    _check_step_args(x, y, loss, precision)
+    t = torch.tanh(x) if apply_tanh else x
+    basis = torch.cat(_cheb_blocks(t, dp1), dim=1)
+    out = _dot_x_dtype(basis, w2.to(basis.dtype)).to(torch.float32)
+    err = out if loss == "sumsq" else out - y.to(torch.float32)
+    g_scale, loss_scale = _step_scales(x.shape[0], w2.shape[1], loss)
+    total = (err * err).sum()
+    dw = basis.to(torch.float32).T @ (g_scale * err)
+    return (total if loss == "sumsq" else loss_scale * total), dw.contiguous()
+
+
+def _launch_step(x, w2, dp1, y, loss, apply_tanh):
+    """K5 and the fixed-order dW pass: (loss, dw) on x's card."""
+    b, n, t_dim = _check_layer_args(x, w2, dp1)
+    if loss == "mse":
+        y = y.to(torch.float32).contiguous()
+        if y.device != x.device or tuple(y.shape) != (b, t_dim):
+            raise ValueError(
+                f"y must be [{b}, {t_dim}] on {x.device}, got "
+                f"{tuple(y.shape)} on {y.device}"
+            )
+    else:
+        y = None  # 'sumsq' reads no targets: the kernel gets a null pointer
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    ws_bytes = lib.qkan_fused_step_workspace_bytes(b, n, dp1, t_dim)
+    # K2's dW and colsum(g) partials, then one loss partial per row block
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    loss_out = torch.empty((), dtype=torch.float32, device=x.device)
+    g_scale, loss_scale = _step_scales(b, t_dim, loss)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.qkan_fused_step(
+            x.data_ptr(), w2.data_ptr(),
+            y.data_ptr() if y is not None else None, loss_out.data_ptr(),
+            ws.data_ptr(), ws_bytes, b, n, dp1, t_dim,
+            int(x.dtype == torch.bfloat16), int(bool(apply_tanh)), g_scale,
+            loss_scale, stream,
+        )
+    _raise_on_error(lib, err, "qkan_fused_step")
+    _count(kan_train_step_fused, "launches")
+    return loss_out, fused_bwd_partial_sum(ws, b, n, dp1, t_dim, False)
+
+
+def kan_train_step_fused(
+    x: torch.Tensor,
+    w2: torch.Tensor,
+    dp1: int,
+    y: torch.Tensor | None = None,
+    loss: str = "sumsq",
+    apply_tanh: bool = True,
+    precision: str = "default",
+    tile_b: int | None = None,
+) -> tuple:
+    """One fused single-layer train step: ``(loss, dW)`` with the
+    Chebyshev basis built once, and neither it, ``out`` nor ``g`` written
+    to device memory.
+
+    ``loss='sumsq'``: L = sum(out^2) (the headline objective); ``'mse'``:
+    L = mean((out - y)^2) over all B*T elements.  dX is not produced (the
+    input is data).  ``x`` is float32 or bfloat16 (the v1 rounding points
+    of ``kan_layer_fused``), ``w2`` and ``y`` float32; 'high' and
+    'default' are both FP32 products.  A CPU tensor runs
+    ``kan_train_step_fused_reference``; a CUDA tensor launches the kernel
+    ``qkan_fused_step`` (``csrc/fused_dw_bwd.cu``: counted on
+    ``kan_train_step_fused.launches``) and then the fixed-order dW pass
+    (counted on ``fused_bwd_partial_sum.launches``), or raises.
+
+    Any B >= 1 is taken: the kernel masks the rows past B, so nothing is
+    padded and 'mse' is not biased.  ``tile_b`` is accepted for the JAX
+    signature and ignored (it set the TPU's batch tile).
+    """
+    del tile_b
+    _check_step_args(x, y, loss, precision)
+    if _device_of(x) == "cpu":
+        return kan_train_step_fused_reference(x, w2, dp1, y, loss,
+                                              apply_tanh, precision)
+    return _launch_step(x, w2, dp1, y, loss, apply_tanh)
+
+
+kan_train_step_fused.launches = 0

@@ -4,11 +4,14 @@ numpy inputs, so the bar is 1e-12 (float64 rounding only)."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
 from qkan_implementation_tpu.ops import chebyshev as jax_cheb
+from qkan_implementation_tpu.ops import qkan_layer as jax_layer
 from qkan_implementation_tpu_torch.ops import chebyshev as torch_cheb
+from qkan_implementation_tpu_torch.ops import qkan_layer as torch_layer
 
 TOL = 1e-12
 
@@ -81,3 +84,35 @@ def test_validation_contracts_match():
     for fn in (torch_cheb.chebyshev_t, torch_cheb.chebyshev_basis):
         with pytest.raises(ValueError, match="non-negative"):
             fn(torch.zeros(2), -1)
+
+
+@pytest.mark.parametrize("x0,want", [(1.0, 27.5), (-1.0, 7.5), (0.3, None)])
+def test_clip_tie_passes_half_the_gradient_like_jax(x0, want):
+    """d/dx sum(chebyshev_basis(x, 5, clip=True)): at x = +-1 the clip ties,
+    and jnp.clip passes half the gradient (torch.clamp would pass all:
+    55 and 15)."""
+    xt = torch.tensor(x0, dtype=torch.float64, requires_grad=True)
+    torch_cheb.chebyshev_basis(xt, 5, clip=True).sum().backward()
+    jgrad = float(jax.grad(
+        lambda v: jnp.sum(jax_cheb.chebyshev_basis(v, 5, clip=True))
+    )(jnp.float64(x0)))
+    if want is not None:
+        assert jgrad == want
+    np.testing.assert_allclose(float(xt.grad), jgrad, rtol=TOL, atol=TOL)
+
+
+def test_batched_layer_dx_at_the_clip_bound_matches_jax():
+    """dx of qkan_layer_forward_batched (N = K = 4, degree 3) with inputs
+    on +-1 against jax.grad: the clip tie carries into the layer."""
+    rng = np.random.default_rng(21)
+    x = rng.uniform(-1, 1, (3, 4))
+    x[0, 0], x[1, 2], x[2, 3] = 1.0, -1.0, 1.0
+    w = rng.uniform(-1, 1, (4, 16))
+    xt = torch.from_numpy(x).requires_grad_()
+    torch_layer.qkan_layer_forward_batched(
+        xt, torch.from_numpy(w), 4, 4
+    ).sum().backward()
+    want = jax.grad(lambda v: jnp.sum(jax_layer.qkan_layer_forward_batched(
+        v, jnp.asarray(w), 4, 4
+    )))(jnp.asarray(x))
+    _close(xt.grad, want)

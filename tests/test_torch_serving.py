@@ -234,6 +234,7 @@ def test_port_imports_without_jax():
         "import qkan_implementation_tpu_torch.ops.qkan_layer\n"
         "import qkan_implementation_tpu_torch.ops.quantum\n"
         "import qkan_implementation_tpu_torch.models.qsvt_neuron\n"
+        "import qkan_implementation_tpu_torch.experimental.pallas_layer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('qkan_implementation_tpu.')"
         " or m == 'qkan_implementation_tpu']\n"
