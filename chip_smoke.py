@@ -1,5 +1,6 @@
 """Smoke run of the torch port's FixedKAN serving and training paths, its
-quantum runtime and the fused train step on one CUDA card.
+quantum runtime, the fused train step and the batched QKAN layer over M3
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -111,15 +112,34 @@ Phases, each reported on its own lines:
       autograd through ``kan_layer_fused_reference``); and the device
       time of each of the three by kernel, from ``torch.profiler`` over
       10 calls.
+13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
+   forward, K13 backward with dx, K14 weight-only backward, the dM pass):
+   a. each kernel against its plain version on the card, twice on the
+      same inputs (the same bits both times): the headline shape (f32 and
+      bf16 x), N 16 / K 128 / B 4096, the JAX tests' shapes (B 64 N 4 K 3
+      deg 5, B 48 deg 6, B 100 N 3 K 2 deg 3), B 1 with dp1 1 and 2, a bf16
+      x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS;
+   b. bench.py's headline chain in torch: N = K = 16, degree 7,
+      B = 262144, w <- w - 1e-7 grad_w sum(qkan_layer_forward_batched_fused
+      (x_i, w)^2) for 20 steps on the rotating pool; the start's loss and
+      gradient and the final w against float64 autograd over the unclipped
+      basis (1e-4), K12, K14 and the dM pass 20 times each, K13 never;
+      then one fwd+bwd in x and w (K12, K13 and the dM pass once), dx and
+      grad_w against float64 autograd;
+   c. each kernel's event ms, device µs, plain ms and bound at the
+      headline and at N 16 / K 128 / B 4096, and one step (from the
+      weights, and from an M3 leaf) with its device time by kernel,
+      beside phase 12c's K5 step, the K3 + K4 pair and torch ops.
 
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
-each path of phase 10, the headline step) and read just after; launches
-made to compare kernels with their plain versions are not counted.  The
-last line is ``{"ok": true, "device": {...}}``; the line before it is
-the kernels' JSON record, and the lines before that the headline step's
-times (JSON), the quantum slice's and the train step's.  Any failed check
-raises and the script exits non-zero without those lines.
+each path of phase 10, the headline step, the M3 chain and its
+both-arguments step) and read just after; launches made to compare
+kernels with their plain versions are not counted.  The last line is
+``{"ok": true, "device": {...}}``; the line before it is the kernels'
+JSON record, and the lines before that the M3 layer's and the headline
+step's times (JSON), the quantum slice's and the train step's.  Any
+failed check raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
@@ -128,8 +148,8 @@ Operations count the contractions' multiply-adds, 2 per FMA, and one per
 add of the partial sums; the elementwise recurrences are left out (under
 10% of the FMAs at dp1 = 6).  No single PyTorch call computes tanh ->
 Chebyshev -> contraction, its gradient or the train step, so
-``library_ms`` is null for those; for the partial-sum pass it is
-``torch.sum`` over the row blocks.
+``library_ms`` is null for those (K12-K14 too); for the partial-sum
+passes it is ``torch.sum`` over the row blocks.
 """
 
 from __future__ import annotations
@@ -150,7 +170,12 @@ import torch
 
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
 from qkan_implementation_tpu_torch.models.fixed_kan import kan_apply
+from qkan_implementation_tpu_torch.experimental import pallas_layer as pl3
 from qkan_implementation_tpu_torch.experimental.pallas_layer import (
+    qkan_layer_forward_batched_fused,
+    qkan_layer_fused,
+    qkan_layer_fused_bwd_reference,
+    qkan_layer_fused_reference,
     weights_to_m3,
 )
 from qkan_implementation_tpu_torch.ops import _cuda_build
@@ -228,6 +253,10 @@ COUNTERS = [
     ("ucry_bwd", pk.ucry_msb_pallas, "bwd_launches"),
     ("diag_mult", pk.diag_mult_pallas, "launches"),
     ("h_pair", pk.h_gate_pallas, "launches"),
+    ("m3_fwd", qkan_layer_fused, "launches"),
+    ("m3_bwd", qkan_layer_fused, "bwd_launches"),
+    ("m3_bwd_dw", qkan_layer_fused, "bwd_dw_launches"),
+    ("m3_dm_sum", pl3.m3_dm_partial_sum, "launches"),
 ]
 
 
@@ -1626,6 +1655,281 @@ def time_step(device, card: str) -> dict:
     return table
 
 
+# -- phase 13: the batched QKAN layer over M3 (K12-K14) ------------------------
+
+# name in the kernels line -> (TPU kernel, its device function, and the
+# template flag that tells K13 from K14 in the profiler's demangled or
+# mangled names)
+M3_KERNELS = {
+    "m3_fwd": ("experimental/pallas_layer.py:60", "m3_fwd_kernel", ()),
+    "m3_bwd": ("experimental/pallas_layer.py:71", "m3_bwd_kernel",
+               ("true>", "Lb1E")),
+    "m3_bwd_dw": ("experimental/pallas_layer.py:198", "m3_bwd_kernel",
+                  ("false>", "Lb0E")),
+    # the cross-block sum of dM (the TPU grid carried it in dm_ref across
+    # its sequential steps)
+    "m3_dm_sum": ("experimental/pallas_layer.py:83", "m3_dm_sum_kernel", ()),
+}
+M3_WIDE = (4096, 16, 128, 8)  # B, N, K, dp1: the N16K128 variant
+
+
+def _m3_device_us(kernels: list, name: str):
+    """Device µs a call of the kernel ``name`` in ``device_per_call``'s
+    list, or None."""
+    _, fn, flags = M3_KERNELS[name]
+    us = [u for k, u in kernels
+          if fn in k and (not flags or any(f in k for f in flags))]
+    return sum(us) if us else None
+
+
+def m3_cases(device) -> list:
+    """(name, x, m3, g) at the shapes of phase 13a; g in x's dtype."""
+    rng = np.random.default_rng(SEED + 15)
+    (hx, _), hw = headline_inputs(device)
+    h_m3 = weights_to_m3(hw, HN, HK)
+    cases = []
+
+    def add(name, x, m3):
+        g = torch.from_numpy(rng.normal(size=(x.shape[0], m3.shape[2]))
+                             .astype(np.float32))
+        cases.append((name, x, m3, g.to(device, x.dtype)))
+
+    def rand(b, n, k, dp1, lo=-1.0, hi=1.0, x_dtype=torch.float32, w=None):
+        x = torch.from_numpy(rng.uniform(lo, hi, (b, n)).astype(np.float32))
+        if w is None:  # tests/test_pallas_layer.py's weights
+            w = torch.from_numpy((rng.standard_normal((dp1, n * k)) * 0.3)
+                                 .astype(np.float32))
+        return x.to(device, x_dtype), weights_to_m3(w.to(device), n, k)
+
+    add("headline", hx, h_m3)
+    add("headline_bf16_x", hx.to(torch.bfloat16), h_m3)
+    b, n, k, dp1 = M3_WIDE
+    add(f"N{n}_K{k}_B{b}", *rand(b, n, k, dp1))
+    for b, n, k, deg in ((64, 4, 3, 5), (48, 4, 3, 6), (100, 3, 2, 3)):
+        add(f"jax_test_B{b}_N{n}_K{k}_deg{deg}", *rand(b, n, k, deg + 1))
+    for dp1 in (1, 2):
+        add(f"B1_dp1_{dp1}", *rand(1, HN, HK, dp1))
+    add("B4096_bf16_x", *rand(4096, HN, HK, HDEG + 1, x_dtype=torch.bfloat16))
+    add("B4096_x_in_-2_2", *rand(4096, HN, HK, HDEG + 1, -2.0, 2.0))
+    return cases
+
+
+def check_m3_kernels(device) -> dict:
+    """Phase 13a: K12, K13, K14 and the dM pass against their plain
+    versions on the card, twice on the same inputs (the same bits);
+    returns the worst error of each over f32 inputs."""
+    worst = dict.fromkeys(M3_KERNELS, 0.0)
+    for name, x, m3, g in m3_cases(device):
+        def run():
+            dx, part13 = pl3._bwd_pass(x, m3, g, True)
+            _, part14 = pl3._bwd_pass(x, m3, g, False)
+            return (qkan_layer_fused(x, m3), dx, pl3.m3_dm_partial_sum(part13),
+                    pl3.m3_dm_partial_sum(part14), part14)
+
+        got, again = run(), run()
+        want_out = qkan_layer_fused_reference(x, m3)
+        want_dx, want_dm = qkan_layer_fused_bwd_reference(x, m3, g, True)
+        want_sum = pl3.m3_dm_partial_sum_reference(got[4])
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        where = dict(case=name, x=f"[{x.shape[0]},{x.shape[1]}]",
+                     m3=f"[{m3.shape[0]},{m3.shape[1]},{m3.shape[2]}]",
+                     dtype=str(x.dtype).split(".")[-1], same_bits_twice=same)
+        errs = {
+            "m3_fwd": held("m3_fwd.out", got[0], want_out, "high", **where),
+            "m3_bwd": max(held("m3_bwd.dx", got[1], want_dx, "high", **where),
+                          held("m3_bwd.dm", got[2], want_dm, "high", **where)),
+            "m3_bwd_dw": held("m3_bwd_dw.dm", got[3], want_dm, "high",
+                              **where),
+            "m3_dm_sum": held("m3_dm_sum", pl3.m3_dm_partial_sum(got[4]),
+                              want_sum, "high", **where),
+        }
+        if not same:
+            raise AssertionError(f"m3 kernels {name}: two runs differ")
+        if x.dtype == torch.float32:
+            for k, (err, _) in errs.items():
+                worst[k] = max(worst[k], err)
+    log("kernel", check="m3_worst_f32", **{k: f"{v:.3e}" for k, v in worst.items()})
+    return worst
+
+
+def m3_chain_f64(x, w, x_grad: bool = False):
+    """(loss, grad_w) or (loss, grad_x, grad_w) of sum(out^2) by float64
+    autograd, out the fold of w over the UNCLIPPED basis of x."""
+    w64 = w.detach().double().requires_grad_()
+    x64 = x.detach().double().requires_grad_(x_grad)
+    m2 = weights_to_m3(w64, HN, HK).reshape(-1, HK)
+    bas = chebyshev_basis(x64, HDEG, clip=False)
+    out = bas.transpose(1, 2).reshape(x.shape[0], -1) @ m2
+    loss = torch.sum(out**2)
+    grads = torch.autograd.grad(loss, [x64, w64] if x_grad else [w64])
+    return (loss.detach(), *grads)
+
+
+def _scaled_check(name: str, got, want, **fields) -> None:
+    err = float((got.double() - want).abs().max())
+    bar = STEP_RTOL * float(want.abs().max())
+    log("m3", check=name, max_abs_err=f"{err:.3e}", bar=f"{bar:.3e}",
+        **fields)
+    if not err <= bar:
+        raise AssertionError(f"{name}: {err} > {bar}")
+
+
+def m3_step(x, w):
+    """One fwd+bwd of the chain: (loss, grad_w) through
+    ``qkan_layer_forward_batched_fused`` with x as data."""
+    leaf = w.detach().requires_grad_()
+    loss = torch.sum(qkan_layer_forward_batched_fused(x, leaf, HN, HK) ** 2)
+    (gw,) = torch.autograd.grad(loss, [leaf])
+    return loss.detach(), gw
+
+
+def run_m3_chain(device, paths: dict) -> float:
+    """Phase 13b: bench.py's headline chain in torch, w <- w - lr grad_w
+    sum(qkan_layer_forward_batched_fused(x_i, w)^2) for HSTEPS steps on the
+    rotating pool, held to float64 autograd; then one fwd+bwd in both
+    arguments.  Returns the chain's host ms."""
+    pool, w = headline_inputs(device)
+    loss, gw = m3_step(pool[0], w)
+    loss64, gw64 = m3_chain_f64(pool[0], w)
+    rel = abs(float(loss) - float(loss64)) / float(loss64)
+    log("m3", check="start_loss_vs_float64_autograd", loss=f"{float(loss):.8e}",
+        loss_rel=f"{rel:.3e}", bar=STEP_RTOL)
+    if not rel <= STEP_RTOL:
+        raise AssertionError(f"m3 chain start loss: {rel}")
+    _scaled_check("start_grad_w_vs_float64_autograd", gw, gw64)
+
+    def train():
+        v, losses = w, []
+        for i in range(HSTEPS):
+            loss_i, gw_i = m3_step(pool[i % 2], v)
+            v = v - HLR * gw_i
+            losses.append(loss_i)
+        return v, torch.stack(losses)
+
+    (final, losses), ms = _path(
+        "m3_chain", train,
+        {"m3_fwd": HSTEPS, "m3_bwd_dw": HSTEPS, "m3_dm_sum": HSTEPS}, paths)
+    ref = w.double()
+    for i in range(HSTEPS):
+        ref = ref - HLR * m3_chain_f64(pool[i % 2], ref)[1]
+    losses = losses.double().cpu().numpy()
+    moved = float((ref - w.double()).abs().max())
+    err = float((final.double() - ref).abs().max())
+    log("m3", path="m3_chain", steps=HSTEPS, lr=HLR,
+        ms_per_step=f"{ms / HSTEPS:.4f}", loss_first=f"{losses[0]:.8e}",
+        loss_last=f"{losses[-1]:.8e}", w_moved=f"{moved:.3e}")
+    _scaled_check("final_w_vs_float64_steps", final, ref)
+    if not (np.all(np.isfinite(losses)) and losses[-2] < losses[0]):
+        raise AssertionError(f"m3 chain: loss did not fall {losses}")
+    if not moved > 10 * err:  # the steps moved w by far more than the gap
+        raise AssertionError(f"m3 chain: w moved {moved}, gap {err}")
+
+    def both():
+        xl = pool[0].clone().requires_grad_()
+        wl = w.clone().requires_grad_()
+        out = qkan_layer_forward_batched_fused(xl, wl, HN, HK)
+        return torch.autograd.grad(torch.sum(out**2), [xl, wl])
+
+    (gx, gw), _ = _path("m3_both_args", both,
+                        {"m3_fwd": 1, "m3_bwd": 1, "m3_dm_sum": 1}, paths)
+    _, gx64, gw64 = m3_chain_f64(pool[0], w, x_grad=True)
+    _scaled_check("both_args_dx_vs_float64_autograd", gx, gx64)
+    _scaled_check("both_args_grad_w_vs_float64_autograd", gw, gw64)
+    return ms
+
+
+def m3_timing_cases(device, b, n, k, dp1) -> tuple:
+    """Each kernel at one shape, f32: name -> (kernel call, plain call, one
+    PyTorch call or None, (bound ms, what bounds it)); and the inputs."""
+    rng = np.random.default_rng(SEED + 16)
+    if (b, n, k, dp1) == (HB, HN, HK, HDEG + 1):
+        (x, _), w = headline_inputs(device)
+        m3 = weights_to_m3(w, n, k)
+    else:
+        x = torch.from_numpy(rng.uniform(-1, 1, (b, n)).astype(np.float32))
+        m3 = torch.from_numpy(rng.normal(0, 1 / np.sqrt(dp1 * n), (dp1, n, k))
+                              .astype(np.float32))
+        x, m3 = x.to(device), m3.to(device)
+    g = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(device)
+    _, part = pl3._bwd_pass(x, m3, g, False)
+    mm = 2.0 * b * n * (dp1 - 1) * k  # flops of one contraction
+    x_b, m_b, bk_b = 4.0 * b * n, 4.0 * dp1 * n * k, 4.0 * b * k
+    cases = {
+        "m3_fwd": (lambda: qkan_layer_fused(x, m3),
+                   lambda: qkan_layer_fused_reference(x, m3),
+                   None, bound(x_b + m_b + bk_b, mm)),
+        "m3_bwd": (lambda: pl3._bwd_pass(x, m3, g, True),
+                   lambda: qkan_layer_fused_bwd_reference(x, m3, g, True),
+                   None, bound(2 * x_b + 2 * m_b + bk_b, 2 * mm)),
+        "m3_bwd_dw": (lambda: pl3._bwd_pass(x, m3, g, False),
+                      lambda: qkan_layer_fused_bwd_reference(x, m3, g, False),
+                      None, bound(x_b + m_b + bk_b, mm)),
+        "m3_dm_sum": (lambda: pl3.m3_dm_partial_sum(part),
+                      lambda: pl3.m3_dm_partial_sum_reference(part),
+                      lambda: torch.sum(part, dim=0),
+                      bound(4.0 * part.numel() + m_b, float(part.numel()))),
+    }
+    return cases, x, m3
+
+
+def time_m3(device, card: str, step_table: dict) -> dict:
+    """Phase 13c: each kernel's event ms, device µs, plain ms and bound at
+    the headline shape and at N16/K128/B4096; then one K12 + K14 step at
+    the headline with its device time by kernel, beside phase 12c's K5
+    step, the K3 + K4 pair and torch ops."""
+    table = {}
+    for shape in ((HB, HN, HK, HDEG + 1), M3_WIDE):
+        b, n, k, dp1 = shape
+        tag = f"B{b}_N{n}_K{k}_dp1_{dp1}"
+        cases, x, m3 = m3_timing_cases(device, *shape)
+        for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+            k_ms = median_ms(kern, reps=30)
+            p_ms = median_ms(plain, reps=30)
+            l_ms = median_ms(lib, reps=30) if lib is not None else None
+            dev = _m3_device_us(device_per_call(kern), name)
+            table[(name, tag)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                                      bound_ms=b_ms, bound_by=b_by,
+                                      device_us=dev)
+            log("time", kernel=name, shape=tag, kernel_ms=f"{k_ms:.4f}",
+                device_us="not measured" if dev is None else f"{dev:.3f}",
+                plain_ms=f"{p_ms:.4f}",
+                library_ms="null" if l_ms is None else f"{l_ms:.4f}",
+                bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
+                card=f"'{card}'")
+    log("time", note="library_ms null for m3_fwd, m3_bwd, m3_bwd_dw: no "
+        "single PyTorch call computes the basis and the contraction")
+
+    # one step at the headline: from the weights (the fold, K12, K14 and
+    # the dM pass) and from an M3 leaf (as K5 takes its folded w2)
+    pool, w = headline_inputs(device)
+    x = pool[0]
+    m3_leaf = weights_to_m3(w, HN, HK).requires_grad_()
+
+    def step_m3():
+        out = qkan_layer_fused(x, m3_leaf)
+        return torch.autograd.grad(torch.sum(out**2), [m3_leaf])
+
+    k5 = step_table["headline"]
+    for step, fn in (("m3_step_from_w", lambda: m3_step(x, w)),
+                     ("m3_step_from_m3", step_m3)):
+        ms = median_ms(fn, reps=30)
+        kernels = device_per_call(fn)
+        dev = sum(us for _, us in kernels) if kernels else None
+        table[step] = dict(ms=ms, device_us_call=dev)
+        log("profile", shape="headline", step=step, ms=f"{ms:.4f}",
+            device_us_call="not measured" if dev is None else f"{dev:.3f}",
+            k5_ms=f"{k5['ms']:.4f}", k5_device_us_call=k5["device_us_call"],
+            pair_k3_k4_ms=f"{k5['pair_ms']:.4f}",
+            pair_device_us=k5["pair_device_us"],
+            torch_ops_ms=f"{k5['torch_ops_ms']:.4f}",
+            torch_ops_device_us=k5["torch_ops_device_us"], card=f"'{card}'")
+        for key, us in kernels[:8]:
+            log("profile", shape="headline", step=step, kernel=key[:60],
+                device_us=f"{us:.3f}")
+    return table
+
+
 def main() -> int:
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -1671,6 +1975,9 @@ def main() -> int:
     errs["fused_step"] = check_step_kernel(device)
     headline_ms = run_headline(device, paths)
     step_table = time_step(device, smi)
+    m3_errs = check_m3_kernels(device)
+    m3_chain_ms = run_m3_chain(device, paths)
+    m3_table = time_m3(device, smi, step_table)
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -1743,7 +2050,26 @@ def main() -> int:
         "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, T {HK}, no tanh, 'sumsq', f32",
         "at_layer0_B4096_mse": t0,
     })
-    for name in [*sources, "fused_step"]:
+    head, wide = (f"B{HB}_N{HN}_K{HK}_dp1_{HDEG + 1}",
+                  "B{}_N{}_K{}_dp1_{}".format(*M3_WIDE))
+    for name, (tpu, *_) in M3_KERNELS.items():
+        t = m3_table[(name, head)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "qkan_implementation_tpu_torch/csrc/qkan_layer_m3.cu",
+            "replaces": f"qkan_implementation_tpu/{tpu}",
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if c[name]},
+            "max_abs_err": m3_errs[name],
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_us")},
+            "bound_us": t["bound_ms"] * 1e3,
+            "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, K {HK}, f32",
+            f"at_{wide}": m3_table[(name, wide)],
+        })
+    for name in [*sources, "fused_step", *M3_KERNELS]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "
@@ -1753,6 +2079,11 @@ def main() -> int:
         "path_ms": headline_ms, "steps": HSTEPS, "batch": HB, **{
             f"{shape}_{k}": v for shape, row in step_table.items()
             for k, v in row.items() if k.endswith(("ms", "_us"))},
+        "card": smi}}), flush=True)
+    print(json.dumps({"m3_layer": {
+        "chain_ms_per_step": m3_chain_ms / HSTEPS, "steps": HSTEPS,
+        "batch": HB, **{k: m3_table[k] for k in (
+            "m3_step_from_w", "m3_step_from_m3")},
         "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

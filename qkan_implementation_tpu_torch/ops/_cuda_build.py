@@ -161,11 +161,23 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_ucry.argtypes = [p, p, p, ll, i, ll, i, i, p]
             lib.qkan_diag_mult.argtypes = [p, p, p, ll, i, ll, i, p]
             lib.qkan_h_pair.argtypes = [p, p, ll, i, i, p]
+            # the batched QKAN layer over M3 (csrc/qkan_layer_m3.cu)
+            lib.qkan_m3_smem_bytes.argtypes = [i, i, i, i]
+            lib.qkan_m3_smem_bytes.restype = ll
+            lib.qkan_m3_smem_limit.argtypes = []
+            lib.qkan_m3_smem_limit.restype = ll
+            lib.qkan_m3_bwd_blocks.argtypes = [ll, i, i, i, i]
+            lib.qkan_m3_bwd_blocks.restype = i
+            lib.qkan_m3_fwd.argtypes = [p, p, p, ll, i, i, i, i, p]
+            lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i,
+                                        i, p]
+            lib.qkan_m3_dm_sum.argtypes = [p, p, i, ll, p]
             for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
                           "qkan_fused_dw_bwd", "qkan_fused_bwd",
                           "qkan_fused_bwd_partial_sum", "qkan_fused_step",
                           "qkan_ucry_cs", "qkan_ucry", "qkan_diag_mult",
-                          "qkan_h_pair"):
+                          "qkan_h_pair", "qkan_m3_fwd", "qkan_m3_bwd",
+                          "qkan_m3_dm_sum"):
                 getattr(lib, entry).restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p

@@ -86,18 +86,33 @@ def qkan_weight_tensor(weights: torch.Tensor, N: int, K: int) -> torch.Tensor:
     """
     dp1 = weights.shape[0]
     dev = weights.device
-    j_idx = np.arange(K)[:, None] * N + np.arange(N)[None, :]  # [K, N] = j
-    n_idx = j_idx // K  # input feature feeding slot (k, i)
-    w_g = weights[:, torch.as_tensor(j_idx, device=dev)].permute(1, 2, 0)
-    k_idx = np.broadcast_to(np.arange(K)[:, None], (K, N))
+    j_idx, k_idx, n_idx = _fold_indices(N, K, dev)
+    w_g = weights[:, j_idx].permute(1, 2, 0)
     M = torch.zeros((K, N, dp1), dtype=weights.dtype, device=dev)
-    M = M.index_put(
-        (torch.as_tensor(k_idx.reshape(-1), device=dev),
-         torch.as_tensor(n_idx.reshape(-1), device=dev)),
-        w_g.reshape(K * N, dp1),
-        accumulate=True,
-    )
+    M = M.index_put((k_idx, n_idx), w_g.reshape(K * N, dp1), accumulate=True)
     return M / (N * dp1)
+
+
+# (N, K, device) -> the fold's index tensors, uploaded once: a pageable
+# host-to-device copy costs far more than its bytes
+_FOLD_INDICES: dict = {}
+
+
+def _fold_indices(N: int, K: int, device: torch.device) -> tuple:
+    """(j [K, N], k [K*N], n [K*N]): slot (k, i) reads weight column
+    j = k*N + i and feeds input feature j // K."""
+    key = (N, K, device)
+    idx = _FOLD_INDICES.get(key)
+    if idx is None:
+        j = np.arange(K)[:, None] * N + np.arange(N)[None, :]
+        k = np.broadcast_to(np.arange(K)[:, None], (K, N))
+        # ordinary tensors even under inference_mode, so a later call that
+        # records autograd may save them
+        with torch.inference_mode(False):
+            idx = tuple(torch.as_tensor(a, device=device)
+                        for a in (j, k.reshape(-1), (j // K).reshape(-1)))
+        _FOLD_INDICES[key] = idx
+    return idx
 
 
 def _compute_dtype(compute_dtype):
