@@ -1,6 +1,6 @@
 """Smoke run of the torch port's FixedKAN serving and training paths, its
-quantum runtime, the fused train step and the batched QKAN layer over M3
-on one CUDA card.
+quantum runtime, the fused train step, the batched QKAN layer over M3
+and the mesh-sharded statevector on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -130,15 +130,41 @@ Phases, each reported on its own lines:
       headline and at N 16 / K 128 / B 4096, and one step (from the
       weights, and from an M3 leaf) with its device time by kernel,
       beside phase 12c's K5 step, the K3 + K4 pair and torch ops.
+14. the mesh-sharded statevector (``sim.sharded``) and the fused exchange
+   K11 (``sim.rdma``, ``csrc/exchange.cu``) on a mesh of 8 slots on the
+   one card (``make_mesh(8, devices=[cuda] * 8)``):
+   a. K11 against its plain version, both gates, f32 and f64, every
+      dev_bit in {0, 1, 2}, half blocks M in {1, 2^10, 2^20, 2^23}:
+      forward, twice (the same bits), and the backward of sum(out^3)
+      through its autograd Function against autograd through the plain
+      version, at phase 9's bars;
+   b. ``qkan_layer_forward_quantum_sharded`` at phase 10a's width (N = K
+      = 16, degree 7: 17 qubits, q_local 14), each exchange_impl, f32
+      and f64, forward and the gradient in x and w against the
+      single-card ``qkan_layer_forward_quantum`` within 1e-4 / 1e-8
+      absolute; K11 launches 24 on 'rdma' and none on the other routes;
+      ``count_exchanges`` beside the run's exchange count (equal on the
+      collective routes);
+   c. the 2^13 diagonal of phase 10d through
+      ``quantum_extract_diag_packed_sharded`` (27 qubits, 64 MB a slot),
+      'rdma' and 'collective', within 5e-4 max(1, alpha) of the
+      single-card ``quantum_extract_diag_packed``; the error against the
+      diagonal itself, the gap between the routes, ``shard_memory_report``
+      and each route's host ms, event ms and device µs by kernel;
+   d. K11's event ms, device µs (8 launches) and plain ms at the 27-qubit
+      shape beside its bound and the collective path for the same
+      exchange and gate (``pairwise_exchange`` + K6 or K10).
 
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
 each path of phase 10, the headline step, the M3 chain and its
-both-arguments step) and read just after; launches made to compare
+both-arguments step, each path of 14b and 14c) and read just after;
+launches made to compare
 kernels with their plain versions are not counted.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
-JSON record, and the lines before that the M3 layer's and the headline
-step's times (JSON), the quantum slice's and the train step's.  Any
+JSON record, and the lines before that the sharded paths', the M3
+layer's and the headline step's times (JSON), the quantum slice's and
+the train step's.  Any
 failed check raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
@@ -202,10 +228,17 @@ from qkan_implementation_tpu_torch.ops.qkan_layer import (
 from qkan_implementation_tpu_torch.ops.quantum import (
     qkan_layer_forward_quantum_batched,
 )
+from qkan_implementation_tpu_torch.parallel import make_mesh
 from qkan_implementation_tpu_torch.serving import BatchedPredictor, serve
 from qkan_implementation_tpu_torch.sim import pallas_kernels as pk
+from qkan_implementation_tpu_torch.sim import rdma
 from qkan_implementation_tpu_torch.sim import simulate
 from qkan_implementation_tpu_torch.sim.fusion import simulate_fable_runtime
+from qkan_implementation_tpu_torch.sim.sharded import (
+    count_exchanges,
+    shard_memory_report,
+    sharded_simulate,
+)
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
 
 SEED = 0
@@ -257,6 +290,8 @@ COUNTERS = [
     ("m3_bwd", qkan_layer_fused, "bwd_launches"),
     ("m3_bwd_dw", qkan_layer_fused, "bwd_dw_launches"),
     ("m3_dm_sum", pl3.m3_dm_partial_sum, "launches"),
+    ("exchange_ucry", rdma.ucry_exchange_fused_rdma, "launches"),
+    ("exchange_h", rdma.h_exchange_fused_rdma, "launches"),
 ]
 
 
@@ -1930,6 +1965,362 @@ def time_m3(device, card: str, step_table: dict) -> dict:
     return table
 
 
+# -- phase 14: the sharded statevector and the fused exchange (K11) -------------
+
+SLOTS = 8  # the JAX tests' mesh, as 8 slots on one card
+EXCHANGE_HALVES = (1, 2**10, 2**20, 2**23)  # M: 2^23 is the 27-qubit slot
+EXCHANGE_BITS = (0, 1, 2)
+SHARD_IMPLS = ("rdma", "collective", "all_to_all")
+# launches of one sharded FABLE-diagonal run (17 or 27 qubits on 8 slots):
+# 'rdma' fuses the first H wall's two global qubits and the global-target
+# ucry into K11 (one launch a slot each); the collective routes exchange
+# and rotate at the local MSB with K8
+SHARD_LAUNCHES = {"rdma": {"exchange_ucry": SLOTS, "exchange_h": 2 * SLOTS},
+                  "collective": {"ucry": SLOTS},
+                  "all_to_all": {"ucry": SLOTS}}
+
+
+def _slot_blocks(gen, m: int, dtype, device) -> list:
+    return [torch.randn(2 * m, generator=gen, device=device, dtype=dtype)
+            for _ in range(SLOTS)]
+
+
+def _exchange_plain(gate, blocks, cs, sn, dev_bit):
+    """K11's plain version on every slot (the partner's half read in
+    place: all slots sit on one card)."""
+    m = blocks[0].shape[0] // 2
+    out = []
+    for d in range(SLOTS):
+        g = (d >> dev_bit) & 1
+        kept = blocks[d][g * m:(g + 1) * m]
+        received = blocks[d ^ (1 << dev_bit)][g * m:(g + 1) * m]
+        out.append(rdma.ucry_exchange_reference(kept, received, cs[d], sn[d],
+                                                g)
+                   if gate == "ucry" else
+                   rdma.h_exchange_reference(kept, received, g))
+    return out
+
+
+def _exchange_kernel(gate, blocks, cs, sn, dev_bit):
+    if gate == "ucry":
+        return rdma.ucry_exchange_fused_rdma(blocks, cs, sn, dev_bit)
+    return rdma.h_exchange_fused_rdma(blocks, dev_bit)
+
+
+def _slots_err(got: list, want: list, dtype) -> float:
+    """max over slots of |kernel - plain| over its bar (phase 9's)."""
+    torch.cuda.synchronize()
+    worst = 0.0
+    for g, w in zip(got, want):
+        if (g.shape != w.shape or g.dtype != w.dtype
+                or not bool(torch.isfinite(g).all())):
+            raise AssertionError("K11: bad output")
+        bar = SV_BAR[dtype] * max(float(w.abs().max()), 1e-300)
+        worst = max(worst, float((g - w).abs().max()) / bar)
+    return worst
+
+
+def check_exchange_kernel(device) -> float:
+    """Phase 14a: K11 (both gates) against its plain version on 8 slots of
+    the card: f32 and f64, every dev_bit of the mesh, half blocks M in
+    EXCHANGE_HALVES, forward (twice: the same bits) and the backward of
+    sum(out^3) through the autograd Function against autograd through the
+    plain version.  Returns the worst |kernel - plain|."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 14)
+    worst_abs = 0.0
+    for m in EXCHANGE_HALVES:
+        for dtype in (torch.float32, torch.float64):
+            ratios = {}
+            for dev_bit in EXCHANGE_BITS:
+                blocks = _slot_blocks(gen, m, dtype, device)
+                th = [torch.rand(m, generator=gen, device=device,
+                                 dtype=dtype) * (2 * np.pi)
+                      for _ in range(SLOTS)]
+                cs = [torch.cos(t / 2) for t in th]
+                sn = [torch.sin(t / 2) for t in th]
+                del th
+                for gate in ("ucry", "h"):
+                    got = _exchange_kernel(gate, blocks, cs, sn, dev_bit)
+                    want = _exchange_plain(gate, blocks, cs, sn, dev_bit)
+                    fwd = _slots_err(got, want, dtype)
+                    again = _exchange_kernel(gate, blocks, cs, sn, dev_bit)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"K11 {gate}: other bits on a "
+                                             "second run")
+                    worst_abs = max(worst_abs, max(
+                        float((g - w).abs().max()) for g, w in zip(got, want)))
+                    # the VJP recovers the pre-rotation pair from the
+                    # saved outputs, so d cos / d sin carry a rounding of
+                    # |g| |out| (g = 3 out^2) where autograd of the plain
+                    # version multiplies the inputs: their bar scales
+                    # with that product
+                    term = [3.0 * float(w.abs().max()) ** 3 for w in want]
+                    del got, want, again
+                    bwd = []
+                    for fn in (_exchange_kernel, _exchange_plain):
+                        leaves = [t.detach().requires_grad_()
+                                  for t in (*blocks, *cs, *sn)]
+                        lb = leaves[:SLOTS]
+                        lc, ls = leaves[SLOTS:2 * SLOTS], leaves[2 * SLOTS:]
+                        outs = fn(gate, lb, lc, ls, dev_bit)
+                        used = leaves if gate == "ucry" else lb
+                        bwd.append(torch.autograd.grad(
+                            sum((o**3).sum() for o in outs), used))
+                        del outs, leaves, lb, lc, ls
+                    got_g, want_g = bwd
+                    bwd_ratio = _slots_err(list(got_g[:SLOTS]),
+                                           list(want_g[:SLOTS]), dtype)
+                    for k, (g, w) in enumerate(zip(got_g[SLOTS:],
+                                                   want_g[SLOTS:])):
+                        bwd_ratio = max(bwd_ratio, float((g - w).abs().max())
+                                        / (SV_BAR[dtype] * term[k % SLOTS]))
+                    ratios[f"{gate}[bit {dev_bit}]"] = (fwd, bwd_ratio)
+                    del bwd, got_g, want_g
+                del blocks, cs, sn
+            torch.cuda.empty_cache()
+            log("exchange", check="K11_vs_plain", slots=SLOTS, half=m,
+                float=str(dtype).split(".")[-1], same_bits_twice=True,
+                err_over_bar_fwd_bwd={k: f"{f:.3f}/{b:.3f}"
+                                      for k, (f, b) in ratios.items()})
+            if not all(f <= 1.0 and b <= 1.0 for f, b in ratios.values()):
+                raise AssertionError(f"K11 over its bar at M={m}: {ratios}")
+    return worst_abs
+
+
+def run_sharded_layer(device, mesh8, paths: dict) -> dict:
+    """Phase 14b: the quantum layer of phase 10a with its block encoding
+    on 8 slots of the card, every exchange_impl, f32 and f64, forward and
+    the gradient of sum(out^2) in x and w, against the single-card
+    ``qkan_layer_forward_quantum``; returns host ms by path."""
+    from qkan_implementation_tpu_torch.ops.quantum import (
+        _diag_circuit_template,
+        qkan_layer_forward_quantum,
+        qkan_layer_forward_quantum_sharded,
+    )
+
+    rng = np.random.default_rng(SEED + 14)
+    x_np = rng.uniform(-0.9, 0.9, QN)
+    w_np = rng.uniform(-0.9, 0.9, (QDEG + 1, QN * QK))
+    n = int(np.log2(QN * QK))
+    circ, _ = _diag_circuit_template(n)
+    counted = count_exchanges(circ, SLOTS)
+    times = {}
+
+    def fwd_bwd(forward, dtype):
+        x = _on(device, x_np, dtype).requires_grad_()
+        w = _on(device, w_np, dtype).requires_grad_()
+        out = forward(x, w)
+        gx, gw = torch.autograd.grad((out**2).sum(), [x, w])
+        return out.detach(), gx, gw
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).split(".")[-1]
+        want = fwd_bwd(lambda x, w: qkan_layer_forward_quantum(x, w, QN, QK),
+                       dtype)
+        for impl in SHARD_IMPLS:
+            name = f"sharded_layer_{impl}_{dt}"
+            fwd_bwd(lambda x, w: qkan_layer_forward_quantum_sharded(
+                x, w, QN, QK, mesh8, exchange_impl=impl), dtype)  # warm
+            got, times[name] = _path(name, lambda: fwd_bwd(
+                lambda x, w: qkan_layer_forward_quantum_sharded(
+                    x, w, QN, QK, mesh8, exchange_impl=impl), dtype),
+                SHARD_LAUNCHES[impl], paths)
+            if got[0].shape != (QK,):
+                raise AssertionError(f"{name}: shape {tuple(got[0].shape)}")
+            state = sharded_simulate(circ, mesh8, dtype=dtype,
+                                     exchange_impl=impl)
+            for part, g, w in zip(("out", "dx", "dw"), got, want):
+                _bar_check(f"{name}_{part}_vs_single_card",
+                           float((g - w).abs().max()), QLAYER_BAR[dtype],
+                           max_abs=f"{float(w.abs().max()):.3e}")
+            k11 = {k: paths[name][k] for k in ("exchange_ucry", "exchange_h")}
+            log("sharded", path=name, qubits=2 * n + 1,
+                q_local=2 * n + 1 - 3, k11_launches=k11,
+                count_exchanges=counted,
+                layout_exchanges=state.exchange_count)
+            if (sum(k11.values()) > 0) != (impl == "rdma"):
+                raise AssertionError(f"{name}: K11 launches {k11}")
+            # the dry walk counts the collective schedule; 'rdma' parks the
+            # fused qubits at the local MSB, where the second H wall finds
+            # them local
+            if impl != "rdma" and state.exchange_count != counted:
+                raise AssertionError(f"{name}: {state.exchange_count} "
+                                     f"exchanges, count_exchanges {counted}")
+            del state
+    return times
+
+
+def _device_breakdown(fn, calls: int = 3) -> list:
+    """(kernel, device µs a call, launches a call) of ``fn``, largest
+    first, from torch.profiler over ``calls`` calls: each kernel's mean
+    time a launch times its launches a call (as ``device_per_call``), so
+    launches the profiler drops at the start of its window do not count
+    against the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = []
+    for k, u, c in device_events(prof):
+        if c:
+            per_call = max(1, round(c / calls))
+            out.append((k, u / c * per_call, per_call))
+    return sorted(out, key=lambda e: -e[1])
+
+
+def run_sharded_scale(device, mesh8, paths: dict, card: str) -> dict:
+    """Phase 14c: the 2^13 diagonal of phase 10d through the packed
+    extraction on 8 slots of the card (27 qubits, 64 MB a slot in f32),
+    'rdma' and 'collective', against the single-card packed extraction;
+    returns host ms, event ms and device µs by route."""
+    from qkan_implementation_tpu_torch.ops.quantum import (
+        _diag_angles,
+        _diag_circuit_template,
+        packed_initial_shards,
+        quantum_extract_diag_packed,
+        quantum_extract_diag_packed_sharded,
+    )
+
+    size = 2**SCALE_N
+    diag_np = np.random.default_rng(0).uniform(-1, 1, size)
+    diag = _on(device, diag_np, torch.float32)
+    alpha = max(1.0, float(np.abs(diag_np).max()) * (1 + 32 * 2.0**-23))
+    bar = 5e-4 * max(1.0, alpha)
+    with torch.no_grad():
+        single = quantum_extract_diag_packed(diag)
+        table, got = {}, {}
+        for impl in ("rdma", "collective"):
+            name = f"sharded_extract_27q_{impl}"
+            quantum_extract_diag_packed_sharded(diag, mesh8,
+                                                exchange_impl=impl)  # warm
+            got[impl], host_ms = _path(
+                name, lambda: quantum_extract_diag_packed_sharded(
+                    diag, mesh8, exchange_impl=impl),
+                SHARD_LAUNCHES[impl], paths)
+            _bar_check(f"{name}_vs_single_card",
+                       float((got[impl] - single).abs().max()), bar,
+                       vs_diag=f"{float((got[impl] - diag).abs().max()):.3e}",
+                       single_card_vs_diag=(
+                           f"{float((single - diag).abs().max()):.3e}"),
+                       entries=size, alpha=f"{alpha:.6f}")
+
+            def call(impl=impl):
+                return quantum_extract_diag_packed_sharded(
+                    diag, mesh8, exchange_impl=impl)
+
+            event_ms = median_ms(call, reps=5, warm=1)
+            kernels = _device_breakdown(call)
+            busy = sum(u for _, u, _ in kernels)
+            k11_us = sum(u for k, u, _ in kernels if "exchange_" in k)
+            table[impl] = dict(host_ms=host_ms, event_ms=event_ms,
+                               device_us=busy, k11_device_us=k11_us)
+            log("sharded", path=name, host_ms=f"{host_ms:.4f}",
+                event_ms=f"{event_ms:.4f}", device_ms=f"{busy / 1e3:.4f}",
+                k11_launches=paths[name]["exchange_ucry"]
+                + paths[name]["exchange_h"], card=f"'{card}'")
+            for key, us, count in kernels[:8]:
+                log("sharded", path=name, kernel=key[:70],
+                    device_us=f"{us:.3f}", launches=f"{count:g}")
+        gap = float((got["rdma"] - got["collective"]).abs().max())
+        log("sharded", check="extract_27q_rdma_vs_collective",
+            max_abs_gap=f"{gap:.3e}")
+        flat, _ = _diag_angles(diag)
+        circ, idx = _diag_circuit_template(SCALE_N)
+        state = sharded_simulate(
+            circ, mesh8, psi0=packed_initial_shards(size, mesh8,
+                                                    torch.float32),
+            dtype=torch.float32, exchange_impl="rdma",
+            runtime_params={idx: flat})
+        report = shard_memory_report(state)
+        log("sharded", check="shard_memory_report_27q", **report)
+        if not (report["balanced"] and report["max_bytes_per_device"]
+                == 2 ** (2 * SCALE_N + 1) * 4 // SLOTS):
+            raise AssertionError(f"27-qubit shards: {report}")
+        del state, flat
+    torch.cuda.empty_cache()
+    return table
+
+
+def time_exchange(device, card: str) -> tuple[dict, float]:
+    """Phase 14d: K11 at the 27-qubit shape (8 slots of 2^24 f32
+    amplitudes, dev_bit 2): event ms, device µs and plain ms of one
+    exchange (8 launches) beside its bound, and the collective path for
+    the same exchange and gate (``pairwise_exchange`` at the local MSB,
+    then K6 or K10 on each slot).  Returns the table and the worst
+    |kernel - plain|."""
+    from qkan_implementation_tpu_torch.sim.sharded import (
+        _exchange_global_local,
+    )
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 15)
+    m = EXCHANGE_HALVES[-1]
+    q_local, dev_bit = m.bit_length(), 2
+    n = SLOTS * 2 * m
+    blocks = _slot_blocks(gen, m, torch.float32, device)
+    th = [torch.rand(m, generator=gen, device=device) * (2 * np.pi)
+          for _ in range(SLOTS)]
+    cs = [torch.cos(t / 2) for t in th]
+    sn = [torch.sin(t / 2) for t in th]
+    del th
+
+    def collective(gate):
+        moved = _exchange_global_local(blocks, dev_bit, q_local - 1)
+        if gate == "ucry":
+            return [pk.ucry_msb_cs_pallas_pair(b, c, s)
+                    for b, c, s in zip(moved, cs, sn)]
+        return [pk.h_gate_pallas(b, q_local - 1) for b in moved]
+
+    table, worst = {}, 0.0
+    for gate, (b_ms, b_by) in (("ucry", bound(12.0 * n, 3.0 * n)),
+                               ("h", bound(8.0 * n, 2.0 * n))):
+        kern = lambda gate=gate: _exchange_kernel(gate, blocks, cs, sn,
+                                                  dev_bit)
+        plain = lambda gate=gate: _exchange_plain(gate, blocks, cs, sn,
+                                                  dev_bit)
+        coll = lambda gate=gate: collective(gate)
+        got, want, other = kern(), plain(), coll()
+        ratio = max(_slots_err(got, want, torch.float32),
+                    _slots_err(other, want, torch.float32))
+        if ratio > 1.0:
+            raise AssertionError(f"K11 {gate} at 27 qubits: {ratio}")
+        worst = max(worst, max(float((g - w).abs().max())
+                               for g, w in zip(got, want)))
+        del got, want, other
+        row = dict(ms=median_ms(kern, reps=20, warm=3),
+                   plain_ms=median_ms(plain, reps=20, warm=3),
+                   collective_ms=median_ms(coll, reps=20, warm=3),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        k_us = [u for k, u, _ in _device_breakdown(kern, 10)
+                if "exchange_" in k]
+        row["device_us"] = sum(k_us) if k_us else None
+        row["collective_device_us"] = sum(
+            u for _, u, _ in _device_breakdown(coll, 10))
+        table[gate] = row
+        log("time", kernel=f"exchange_{gate}",
+            state=f"{SLOTS} slots x 2^24 f32 (27 qubits)",
+            kernel_ms=f"{row['ms']:.4f}",
+            device_us="not measured" if row["device_us"] is None
+            else f"{row['device_us']:.3f}",
+            plain_ms=f"{row['plain_ms']:.4f}",
+            collective_ms=f"{row['collective_ms']:.4f}",
+            collective_device_us=f"{row['collective_device_us']:.3f}",
+            bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
+            err_over_bar=f"{ratio:.3f}", card=f"'{card}'")
+    del blocks, cs, sn
+    torch.cuda.empty_cache()
+    log("time", note="library_ms null for K11: no single PyTorch call "
+        "exchanges and rotates; collective_ms is pairwise_exchange + K6/K10")
+    return table, worst
+
+
 def main() -> int:
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -1978,6 +2369,12 @@ def main() -> int:
     m3_errs = check_m3_kernels(device)
     m3_chain_ms = run_m3_chain(device, paths)
     m3_table = time_m3(device, smi, step_table)
+    mesh8 = make_mesh(SLOTS, devices=[device] * SLOTS)
+    exchange_err = check_exchange_kernel(device)
+    sharded_ms = run_sharded_layer(device, mesh8, paths)
+    sharded_ms.update(run_sharded_scale(device, mesh8, paths, smi))
+    exchange_table, timed_err = time_exchange(device, smi)
+    exchange_err = max(exchange_err, timed_err)
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -2069,7 +2466,27 @@ def main() -> int:
             "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, K {HK}, f32",
             f"at_{wide}": m3_table[(name, wide)],
         })
-    for name in [*sources, "fused_step", *M3_KERNELS]:
+    by_path = {p: c["exchange_ucry"] + c["exchange_h"]
+               for p, c in paths.items()}
+    t, th = exchange_table["ucry"], exchange_table["h"]
+    kernels.append({
+        "name": "exchange",
+        "route": "cuda",
+        "source": "qkan_implementation_tpu_torch/csrc/exchange.cu",
+        "replaces": "qkan_implementation_tpu/sim/rdma.py:80",
+        "launches": sum(by_path.values()),
+        "launches_by_path": {p: n for p, n in by_path.items() if n},
+        "max_abs_err": exchange_err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "device_us", "collective_ms",
+                             "collective_device_us")},
+        "bound_us": t["bound_ms"] * 1e3,
+        "at": f"{SLOTS} slots x psi[2^24] f32 (27 qubits), dev_bit 2, ucry; "
+              "one exchange = 8 launches",
+        "h": {**th, "bound_us": th["bound_ms"] * 1e3},
+    })
+    for name in [*sources, "fused_step", *M3_KERNELS, "exchange_ucry",
+                 "exchange_h"]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "
@@ -2085,6 +2502,8 @@ def main() -> int:
         "batch": HB, **{k: m3_table[k] for k in (
             "m3_step_from_w", "m3_step_from_m3")},
         "card": smi}}), flush=True)
+    print(json.dumps({"sharded": {**sharded_ms, "slots": SLOTS,
+                                  "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

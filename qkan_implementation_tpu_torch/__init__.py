@@ -14,7 +14,11 @@ counterpart there.  It imports torch and numpy only.
 - ``encoding`` -- FABLE block encodings as gate-IR circuits (numpy).
 - ``sim``      -- the statevector engine: gate IR, simulation, register
                   and ladder fusion, measurement, and the streaming gate
-                  kernels (``sim.pallas_kernels``, ``csrc/statevector.cu``).
+                  kernels (``sim.pallas_kernels``, ``csrc/statevector.cu``);
+                  the mesh-sharded engine (``sim.sharded``) with its fused
+                  exchange kernel (``sim.rdma``, ``csrc/exchange.cu``).
+- ``parallel`` -- a mesh of device slots and the collectives over them
+                  (single-controller, as the JAX package's ``shard_map``).
 - ``models``   -- FixedKAN config, forward (``'xla'`` fold and the
                   ``'fused'`` / ``'fused_dw'`` kernel backends), gradient
                   training and npz checkpoints in the JAX package's
@@ -23,8 +27,8 @@ counterpart there.  It imports torch and numpy only.
 - ``utils``    -- device selection and parameter conversion to and from
                   numpy.
 
-Structure search and the multi-device code (the sharded statevector
-among it) are not ported yet (ROADMAP.md, queues 1 and 2).
+Structure search and tensor- and pipeline-parallel FixedKAN are not
+ported yet (ROADMAP.md, queue 1).
 """
 
 __version__ = "0.1.0"

@@ -401,7 +401,7 @@ class FixedKAN(nn.Module):
         if mesh is not None:
             raise NotImplementedError(
                 "train(mesh=...) needs the multi-device slice, ROADMAP.md "
-                "queue 1 item 10"
+                "queue 1 item 8"
             )
         if self.params is None:
             raise RuntimeError("Run optimization first.")

@@ -172,12 +172,16 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i,
                                         i, p]
             lib.qkan_m3_dm_sum.argtypes = [p, p, i, ll, p]
+            # the global-qubit exchange with its 2x2 (csrc/exchange.cu)
+            lib.qkan_exchange_ucry.argtypes = [p, p, p, p, p, ll, i, i, p]
+            lib.qkan_exchange_h.argtypes = [p, p, p, ll, i, i, p]
             for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
                           "qkan_fused_dw_bwd", "qkan_fused_bwd",
                           "qkan_fused_bwd_partial_sum", "qkan_fused_step",
                           "qkan_ucry_cs", "qkan_ucry", "qkan_diag_mult",
                           "qkan_h_pair", "qkan_m3_fwd", "qkan_m3_bwd",
-                          "qkan_m3_dm_sum"):
+                          "qkan_m3_dm_sum", "qkan_exchange_ucry",
+                          "qkan_exchange_h"):
                 getattr(lib, entry).restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p

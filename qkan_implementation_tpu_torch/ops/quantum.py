@@ -21,9 +21,6 @@ from qkan_implementation_tpu_torch.ops.qkan_layer import lcu_combine_diag, sum_s
 from qkan_implementation_tpu_torch.sim.circuit import Circuit
 from qkan_implementation_tpu_torch.sim.statevector import default_dtype, simulate
 
-_NOT_PORTED = ("is not ported to the torch package yet (ROADMAP.md Queue 1 "
-               "item 10, the multi-device slice)")
-
 
 def _next_pow2_exp(n: int) -> int:
     return max(1, int(np.ceil(np.log2(max(n, 1)))))
@@ -97,8 +94,8 @@ def _build_diag_circuit(n: int, ucry_params) -> Circuit:
 @lru_cache(maxsize=16)
 def _diag_circuit_template(n: int):
     """Structure-only FABLE-diagonal circuit (placeholder ucry angles),
-    cached per size with its ucry gate index (the JAX package's sharded
-    engine keys its executor on it)."""
+    cached per size with its ucry gate index: the sharded extraction runs
+    it with the angles as ``runtime_params``."""
     size = 2**n
     circ = _build_diag_circuit(
         n, np.full((size * size,), np.pi, dtype=np.float32)
@@ -155,9 +152,47 @@ def quantum_extract_diag_packed(diag: torch.Tensor) -> torch.Tensor:
     return psi[..., :size] * (alpha[..., None] * size * np.sqrt(size))
 
 
-def quantum_extract_diag_packed_sharded(diag, mesh, exchange_impl="collective"):
-    """Packed diagonal extraction on the mesh-sharded engine: not ported."""
-    raise NotImplementedError(f"quantum_extract_diag_packed_sharded {_NOT_PORTED}")
+def quantum_extract_diag_packed_sharded(
+    diag: torch.Tensor, mesh, exchange_impl: str = "collective"
+) -> torch.Tensor:
+    """Packed diagonal extraction on the mesh-sharded statevector engine.
+
+    The math of ``quantum_extract_diag_packed``, with the 2^(2n+1)
+    amplitude simulation split over the slots of ``mesh``'s first axis
+    (``sim.sharded``), so an encoding larger than one device's memory
+    still runs.  The packed initial state is built slot by slot: the full
+    state never exists on one device.  The angles ride in as
+    ``runtime_params``, keeping the path differentiable w.r.t. ``diag``
+    [2^n].  ``exchange_impl='rdma'`` sends the global-target ucry and H
+    gates through K11 (``sim.rdma``).
+    """
+    from qkan_implementation_tpu_torch.sim.sharded import sharded_simulate
+
+    size = diag.shape[-1]
+    n = int(np.log2(size))
+    flat, alpha = _diag_angles(diag)
+    circ, ucry_idx = _diag_circuit_template(n)
+    psi = sharded_simulate(
+        circ, mesh, psi0=packed_initial_shards(size, mesh, diag.dtype),
+        dtype=diag.dtype, exchange_impl=exchange_impl,
+        runtime_params={ucry_idx: flat},
+    )
+    return psi[:size] * (alpha * size * np.sqrt(size))
+
+
+def packed_initial_shards(size: int, mesh, dtype) -> list:
+    """The packed initial state of a 2^n diagonal's extraction (1/sqrt(size)
+    on the first ``size`` amplitudes of 2^(2n+1)), built slot by slot over
+    ``mesh``'s first axis."""
+    n = int(np.log2(size))
+    slots = mesh.axis_devices(mesh.axis_names[0])
+    block = 2 ** (2 * n + 1) // len(slots)
+    shards = []
+    for d, dev in enumerate(slots):
+        shard = torch.zeros(block, dtype=dtype, device=dev)
+        shard[:min(max(size - d * block, 0), block)] = 1.0 / np.sqrt(size)
+        shards.append(shard)
+    return shards
 
 
 def _pad_pow2(v: torch.Tensor) -> torch.Tensor:
@@ -170,10 +205,20 @@ def _pad_pow2(v: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(v, (0, padded_size - size))
 
 
-def qkan_layer_forward_quantum_sharded(x, weights, N, K, mesh,
-                                       exchange_impl="collective"):
-    """Quantum-mode layer forward with a sharded block encoding: not ported."""
-    raise NotImplementedError(f"qkan_layer_forward_quantum_sharded {_NOT_PORTED}")
+def qkan_layer_forward_quantum_sharded(
+    x: torch.Tensor, weights: torch.Tensor, N: int, K: int, mesh,
+    exchange_impl: str = "collective",
+) -> torch.Tensor:
+    """Quantum-mode layer forward (``x`` [N] -> [K]) with the block
+    encoding sharded over ``mesh`` (``quantum_extract_diag_packed_sharded``).
+    Differentiable end to end.  ``exchange_impl='rdma'`` runs the
+    circuit's global-qubit exchanges through K11."""
+    lcu = _pad_pow2(lcu_combine_diag(x, weights, K))
+    size = N * K
+    recovered = quantum_extract_diag_packed_sharded(
+        lcu, mesh, exchange_impl=exchange_impl
+    )[:size]
+    return sum_step(recovered, N, K)
 
 
 def qkan_layer_forward_quantum(

@@ -3,8 +3,9 @@
 Counterpart of ``qkan_implementation_tpu.sim``: circuits as data (a gate
 IR), simulation as torch ops over flat (optionally batched) statevectors,
 the unitary as a batch of identity columns, and hand-written CUDA kernels
-for the streaming gates (``sim.pallas_kernels``).  The mesh-sharded
-statevector is not ported yet (``sharded_simulate`` raises).
+for the streaming gates (``sim.pallas_kernels``), and the mesh-sharded
+statevector (``sim.sharded``) with its fused exchange kernel
+(``sim.rdma``).
 """
 
 from qkan_implementation_tpu_torch.sim.circuit import Circuit, Gate
@@ -20,15 +21,7 @@ from qkan_implementation_tpu_torch.sim.measure import (
     expectation_diagonal,
     marginal_probabilities,
 )
-
-
-def sharded_simulate(*args, **kwargs):
-    """The JAX package's mesh-sharded statevector engine (``sim.sharded``):
-    not ported yet, ROADMAP.md Queue 1 item 10 (the multi-device slice)."""
-    raise NotImplementedError(
-        "sharded_simulate is not ported to the torch package yet "
-        "(ROADMAP.md Queue 1 item 10, the multi-device slice)"
-    )
+from qkan_implementation_tpu_torch.sim.sharded import sharded_simulate
 
 
 __all__ = [

@@ -265,10 +265,19 @@ def test_quantum_layer_batch_is_one_rotation(monkeypatch):
 
 
 def test_sharded_quantum_paths_are_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        q.qkan_layer_forward_quantum_sharded(None, None, 2, 2, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        q.quantum_extract_diag_packed_sharded(None, None)
+    """The sharded paths no longer raise (the name predates their port):
+    on 8 CPU slots they give the dense paths' values
+    (``tests/test_torch_sharded.py`` holds them against JAX)."""
+    from qkan_implementation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(8, devices=["cpu"] * 8)
+    N = K = 4
+    x, w = _layer_inputs(10, N, K, 2)
+    close(q.qkan_layer_forward_quantum_sharded(_t(x), _t(w), N, K, mesh),
+          q.qkan_layer_forward_quantum(_t(x), _t(w), N, K).numpy())
+    d = _t(np.random.default_rng(11).uniform(-1, 1, 16))
+    close(q.quantum_extract_diag_packed_sharded(d, mesh, "rdma"),
+          q.quantum_extract_diag_packed(d).numpy())
 
 
 # -- models/qsvt_neuron.py ---------------------------------------------------------------

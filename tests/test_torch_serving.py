@@ -235,6 +235,9 @@ def test_port_imports_without_jax():
         "import qkan_implementation_tpu_torch.ops.quantum\n"
         "import qkan_implementation_tpu_torch.models.qsvt_neuron\n"
         "import qkan_implementation_tpu_torch.experimental.pallas_layer\n"
+        "import qkan_implementation_tpu_torch.parallel\n"
+        "import qkan_implementation_tpu_torch.sim.sharded\n"
+        "import qkan_implementation_tpu_torch.sim.rdma\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('qkan_implementation_tpu.')"
         " or m == 'qkan_implementation_tpu']\n"

@@ -47,6 +47,7 @@ from qkan_implementation_tpu_torch.encoding import (
     gray_permutation,
     sfwht,
 )
+from qkan_implementation_tpu_torch.parallel import make_mesh
 from qkan_implementation_tpu_torch.sim import (
     Circuit,
     measure,
@@ -485,5 +486,5 @@ def test_gate_ir_keeps_tensors_and_checks_shapes():
         Circuit(2).h(2)
     with pytest.raises(ValueError):
         simulate(Circuit(2).h(0), backend="fuse", device="cpu")
-    with pytest.raises(NotImplementedError):
-        sharded_simulate(Circuit(2), None)
+    with pytest.raises(ValueError, match="more qubits"):
+        sharded_simulate(Circuit(2), make_mesh(8, devices=["cpu"] * 8))
