@@ -21,8 +21,13 @@ Phases, each reported on its own lines:
 6. backward kernels vs plain: the degree-wise (K2) and v1 (K4) backward
    kernels and the v1 forward (K3) against their plain versions at
    B in {1, 37, 64, 4096}, in in {784, 10}, every precision, tanh on and
-   off, f32 and bf16 x, with bf16 controls; then every kernel's time,
-   plain time and bound at the flagship shapes;
+   off, f32 and bf16 x, with bf16 controls, and the dW pass over each real
+   workspace equal bit for bit to its plain version in its own order
+   (``fused_bwd_fixed_order_reference``); then every kernel's time, plain
+   time and bound at the flagship shapes, and the dW pass at layer 0, B =
+   4096 (26 partials) and 64 (2), held bit for bit to that plain version
+   twice, then timed: event ms, device µs, plain ms and bound beside
+   ``torch.sum(part, dim=0)``'s event ms and device µs;
 7. the training slice, at the flagship width from one random start on
    synthetic data (4096 rows, labels from a linear teacher), with
    backend 'fused_dw', 'fused' and 'xla' (FP32):
@@ -76,7 +81,9 @@ Phases, each reported on its own lines:
       ``simulate(backend='xla')``;
    f. ``diag_mult_pallas`` on that 21-qubit state (K9).
 11. statevector kernel times at 21 qubits (an 8 MB f32 state: it sits in
-   the 50 MB L2) and 27 qubits (512 MB: HBM), f32: CUDA-event ms, device
+   the 50 MB L2) and 27 qubits (512 MB: HBM), f32, and K8 where 63 of its
+   64 main-path launches run (17 qubits, per-row angles, B 256 and 8):
+   CUDA-event ms, device
    µs from ``torch.profiler`` and the plain version's ms, from one case
    table per size, each kernel first held to its plain version on the
    same state (the phase 9 bars; 27 qubits is the block encoding's K6
@@ -111,7 +118,9 @@ Phases, each reported on its own lines:
       at layer 0 with B = 4096 and 'mse' (there the torch-ops step is
       autograd through ``kan_layer_fused_reference``); and the device
       time of each of the three by kernel, from ``torch.profiler`` over
-      10 calls.
+      10 calls, K5's split into the step kernel, the dW pass and the loss
+      sum; the dW pass over the headline step's workspace (547 partials)
+      as in phase 6.
 13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
    forward, K13 backward with dx, K14 weight-only backward, the dM pass):
    a. each kernel against its plain version on the card, twice on the
@@ -129,7 +138,12 @@ Phases, each reported on its own lines:
    c. each kernel's event ms, device µs, plain ms and bound at the
       headline and at N 16 / K 128 / B 4096, and one step (from the
       weights, and from an M3 leaf) with its device time by kernel,
-      beside phase 12c's K5 step, the K3 + K4 pair and torch ops.
+      beside phase 12c's K5 step, the K3 + K4 pair and torch ops; the dM
+      pass at both shapes (256 and 16 partials) as in phase 6; one
+      wrapper call of each producer with its pass, one library call each
+      (K14 + dM, K13 + dM, K2 + dW, K5 + dW), held to the bits of the
+      producer followed by the pass alone, its event ms beside theirs and
+      its device µs by kernel.
 14. the mesh-sharded statevector (``sim.sharded``) and the fused exchange
    K11 (``sim.rdma``, ``csrc/exchange.cu``) on a mesh of 8 slots on the
    one card (``make_mesh(8, devices=[cuda] * 8)``):
@@ -162,9 +176,9 @@ both-arguments step, each path of 14b and 14c) and read just after;
 launches made to compare
 kernels with their plain versions are not counted.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
-JSON record, and the lines before that the sharded paths', the M3
-layer's and the headline step's times (JSON), the quantum slice's and
-the train step's.  Any
+JSON record, and the lines before that the sharded paths', the one-call
+backwards', the M3 layer's and the headline step's times (JSON), the
+quantum slice's and the train step's.  Any
 failed check raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
@@ -175,7 +189,8 @@ add of the partial sums; the elementwise recurrences are left out (under
 10% of the FMAs at dp1 = 6).  No single PyTorch call computes tanh ->
 Chebyshev -> contraction, its gradient or the train step, so
 ``library_ms`` is null for those (K12-K14 too); for the partial-sum
-passes it is ``torch.sum`` over the row blocks.
+passes (one kernel, ``csrc/partial_sum.cu``) it is ``torch.sum`` over the
+row blocks.
 """
 
 from __future__ import annotations
@@ -197,6 +212,7 @@ import torch
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
 from qkan_implementation_tpu_torch.models.fixed_kan import kan_apply
 from qkan_implementation_tpu_torch.experimental import pallas_layer as pl3
+from qkan_implementation_tpu_torch.ops import fused_layer as fl
 from qkan_implementation_tpu_torch.experimental.pallas_layer import (
     qkan_layer_forward_batched_fused,
     qkan_layer_fused,
@@ -210,8 +226,12 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     _bwd_pass,
     _fused_bwd,
     _fused_dw_bwd,
+    _step_pass,
+    fixed_order_sum_reference,
+    fused_bwd_fixed_order_reference,
     fused_bwd_partial_sum,
     fused_bwd_partial_sum_reference,
+    fused_bwd_workspace_partials,
     kan_layer_fused,
     kan_layer_fused_bwd_reference,
     kan_layer_fused_dw,
@@ -220,6 +240,7 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused_reference,
     kan_train_step_fused,
     kan_train_step_fused_reference,
+    partial_sum_segments,
 )
 from qkan_implementation_tpu_torch.encoding import fable, fable_runtime_params
 from qkan_implementation_tpu_torch.ops.qkan_layer import (
@@ -307,6 +328,41 @@ def read_counts() -> dict:
 def log(phase: str, **fields) -> None:
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def paired_ms(a, b, reps: int = 30, warm: int = 5) -> tuple[float, float]:
+    """Median CUDA-event ms of ``a`` and of ``b``, called in turns (a, b,
+    b, a, ...), so drifts of the card or the host fall on both alike."""
+    for _ in range(warm):
+        a(), b()
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            (a, b)[side]()
+            end.record()
+            end.synchronize()
+            times[side].append(start.elapsed_time(end))
+    return float(np.median(times[0])), float(np.median(times[1]))
+
+
+def paired_host_us(a, b, reps: int = 30) -> tuple[float, float]:
+    """Median host µs of ``a`` and of ``b`` from the call to its return, on
+    an idle card (synchronised before each), called in turns: what a
+    host-bound loop pays a call."""
+    torch.cuda.synchronize()
+    times = ([], [])
+    for i in range(reps):
+        for side in ((0, 1) if i % 2 == 0 else (1, 0)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (a, b)[side]()
+            times[side].append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(times[0])), float(np.median(times[1]))
 
 
 def median_ms(fn, reps: int = 50, warm: int = 5) -> float:
@@ -631,14 +687,23 @@ def check_backward(device) -> dict:
                                 f"v1 forward within {gap} of K1 'high' on a "
                                 "bf16 x: w2 was not rounded to bf16"
                             )
-                    # the fixed-order pass over a real workspace
+                    # the fixed-order pass over a real workspace: the
+                    # bits of the plain sum in its order, twice
                     if x_dtype == torch.float32 and tanh:
-                        _, ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, DP1,
-                                          tanh, (0,), True)
+                        ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, DP1,
+                                       tanh, (0,), True)[1]
                         got = fused_bwd_partial_sum(ws, b, n, DP1, T)
+                        again = fused_bwd_partial_sum(ws, b, n, DP1, T)
                         want = fused_bwd_partial_sum_reference(ws, b, n,
                                                                DP1, T)
+                        fixed = fused_bwd_fixed_order_reference(ws, b, n,
+                                                                DP1, T)
                         torch.cuda.synchronize()
+                        if not (torch.equal(got, fixed)
+                                and torch.equal(got, again)):
+                            raise AssertionError(
+                                f"dW pass {where}: not the bits of the "
+                                "fixed-order plain sum, or not twice")
                         e5, _ = held("fused_bwd_partial_sum", got, want,
                                      "high", **where)
                         worst["fused_bwd_partial_sum"] = max(
@@ -660,10 +725,6 @@ def kernel_cases(rng, device, b: int, n: int) -> dict:
     bounds it)).  Phases 6b and 8 time the same calls."""
     x, w2 = layer_inputs(rng, b, n, True, "high", device)
     g = torch.from_numpy(rng.normal(size=(b, T)).astype(np.float32)).to(device)
-    _, ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, DP1, True, (0,), True)
-    f = ws.view(torch.float32)
-    per_rb = (DP1 - 1) * n * T
-    nrb = _cuda_build.load_library().qkan_fused_bwd_row_blocks(b, n, DP1, T)
     mm = 2.0 * b * n * (DP1 - 1) * T  # flops of one contraction
     # bytes of x [B, in], w2 [dp1*in, T] and one [B, T] (g or out)
     x_b, w_b, bt_b = 4.0 * b * n, 4.0 * DP1 * n * T, 4.0 * b * T
@@ -688,12 +749,6 @@ def kernel_cases(rng, device, b: int, n: int) -> dict:
             lambda: _bwd_pass("qkan_fused_bwd", x, w2, g, DP1, True, (), True),
             lambda: kan_layer_fused_bwd_reference(x, w2, g, DP1),
             None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm),
-        ),
-        "fused_bwd_partial_sum": (
-            lambda: fused_bwd_partial_sum(ws, b, n, DP1, T),
-            lambda: fused_bwd_partial_sum_reference(ws, b, n, DP1, T),
-            lambda: f[: nrb * per_rb].view(nrb, -1).sum(dim=0),
-            bound(4.0 * nrb * (per_rb + T) + w_b, float(nrb) * DP1 * n * T),
         ),
     }
 
@@ -721,6 +776,105 @@ def time_all(device, card: str) -> dict:
                     library_ms="null" if l_ms is None else f"{l_ms:.4f}",
                     bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
                     card=f"'{card}'")
+    return table
+
+
+# -- the fixed-order partial-sum passes (csrc/partial_sum.cu) ----------------
+
+PASS_KERNEL = "partial_sum_kernel"  # in the names of both forms of the pass
+
+
+def pass_cases(device, which: str) -> dict:
+    """The dW pass ('dw': layer 0 at B = 4096 and 64; 'k5': the headline
+    step's workspace) or the dM pass ('dm': the M3 headline and N16 K128)
+    over real partials: tag -> (pass call, plain call in the pass's order,
+    plain call as ``part.sum(0)``, the one PyTorch call ``torch.sum(part,
+    dim=0)`` over the same partials, (bound ms, what bounds it), (nblk,
+    per, segments)).  The bound: the partials read once and the sums
+    written once, one add a partial."""
+    rng = np.random.default_rng(SEED + 17)
+    cases = {}
+    if which == "dm":
+        for tag, (b, n, k, dp1) in ((DM_HEAD, (HB, HN, HK, HDEG + 1)),
+                                    ("dM_N16_K128_B4096", M3_WIDE)):
+            _, x, m3 = m3_timing_cases(device, b, n, k, dp1, timed=False)
+            g = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32))
+            _, part, _ = pl3._bwd_pass(x, m3, g.to(device), False)
+            nblk, per = part.shape[0], part[0].numel()
+            seg = partial_sum_segments(nblk, per)
+            cases[tag] = (
+                lambda part=part: pl3.m3_dm_partial_sum(part),
+                lambda part=part, seg=seg: fixed_order_sum_reference(part, seg),
+                lambda part=part: pl3.m3_dm_partial_sum_reference(part),
+                lambda part=part: torch.sum(part, dim=0),
+                bound(4.0 * (nblk * per + per), float(nblk * per)),
+                (nblk, per, seg))
+        return cases
+    if which == "dw":
+        shapes = [(DW_HEAD, 4096, SHAPE[0], DP1, T, True),
+                  ("dW_layer0_B64", 64, SHAPE[0], DP1, T, True)]
+    else:
+        shapes = [("dW_k5_headline", HB, HN, HDEG + 1, HK, False)]
+    for tag, b, n, dp1, t_dim, tanh in shapes:
+        if which == "dw":
+            x, w2 = layer_inputs(rng, b, n, tanh, "high", device)
+            g = torch.from_numpy(rng.normal(size=(b, t_dim))
+                                 .astype(np.float32)).to(device)
+            ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, dp1, tanh, (0,),
+                           True)[1]
+        else:  # K5's own workspace: K2's layout with want_dx = 0
+            (x, _), w = headline_inputs(device)
+            w2 = weights_to_m3(w, HN, HK).reshape(-1, HK).contiguous()
+            _, ws, _ = _step_pass(x, w2, dp1, None, "sumsq", tanh)
+        want_dx = which == "dw"
+        part, _ = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+        nblk, per = part.shape
+        args = (ws, b, n, dp1, t_dim)
+        cases[tag] = (
+            lambda args=args, w=want_dx: fused_bwd_partial_sum(*args, w),
+            lambda args=args: fused_bwd_fixed_order_reference(*args),
+            lambda args=args: fused_bwd_partial_sum_reference(*args),
+            lambda part=part: torch.sum(part, dim=0),
+            bound(4.0 * (nblk * (per + t_dim) + dp1 * n * t_dim),
+                  float(nblk * (per + t_dim))),
+            (nblk, per, partial_sum_segments(nblk, per)))
+    return cases
+
+
+def time_passes(cases: dict, card: str) -> dict:
+    """Each pass first held bit for bit to its plain version in its own
+    order, twice on the same partials, and within the BARS of
+    ``part.sum(0)``; then its event ms, device µs, plain ms and bound,
+    beside ``torch.sum(part, dim=0)``'s event ms and device µs."""
+    table = {}
+    for tag, (kern, fixed, plain, lib, (b_ms, b_by), (nblk, per, seg)) in \
+            cases.items():
+        got, again, want = kern(), kern(), fixed()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"pass {tag}: not the bits of the plain sum "
+                                 f"in its order (S = {seg}), or not twice")
+        err, _ = held("partial_sum_pass", got, plain(), "high", case=tag)
+        ms, lib_ms = paired_ms(kern, lib)
+        plain_ms = median_ms(plain, reps=10, warm=2)
+        dev = [us for k, us in device_per_call(kern) if PASS_KERNEL in k]
+        lib_kernels = device_per_call(lib)
+        row = dict(nblk=nblk, per=per, segments=seg, max_abs_err=err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   device_us=dev[0] if dev else None,
+                   library_device_us=(sum(us for _, us in lib_kernels)
+                                      if lib_kernels else None),
+                   bound_ms=b_ms, bound_by=b_by)
+        table[tag] = row
+        log("time", kernel="partial_sum_pass", case=tag, nblk=nblk, per=per,
+            segments=seg,
+            kernel_ms=f"{row['ms']:.4f}",
+            device_us="not measured" if not dev else f"{dev[0]:.3f}",
+            plain_ms=f"{row['plain_ms']:.4f}",
+            torch_sum_ms=f"{row['library_ms']:.4f}",
+            torch_sum_device_us=("not measured" if not lib_kernels
+                                 else f"{row['library_device_us']:.3f}"),
+            bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by, card=f"'{card}'")
     return table
 
 
@@ -932,7 +1086,6 @@ KERNEL_NAMES = {
     "fused_fwd": "fused_dw_fwd_kernel",  # K3 shares K1's device code
     "fused_dw_bwd": "fused_dw_bwd_kernel",
     "fused_bwd": "fused_dw_bwd_kernel",
-    "fused_bwd_partial_sum": "fused_bwd_partial_sum_kernel",
 }
 
 
@@ -1430,6 +1583,48 @@ def time_statevector(device, card: str) -> dict:
     return table, worst
 
 
+def time_ucry_launch_shapes(device, card: str) -> dict:
+    """Phase 11: K8 where 63 of its 64 main-path launches run, 17 qubits
+    with per-row angles at B = 256 (the layer forward, 10a) and B = 8 (the
+    gradient and the training demo, 10b-c): held to its plain version
+    (phase 9's bar), then event ms, device µs, plain ms and bound."""
+    rng = np.random.default_rng(SEED + 19)
+    q = QN + 1  # the packed circuit of an N = 16 layer
+    table = {}
+    for batch in (QB, DEMO_B):
+        n = batch * 2**q
+        psi = _on(device, rng.standard_normal((batch, 2**q), dtype=np.float32),
+                  torch.float32)
+        th = _on(device, rng.uniform(0, 2 * np.pi, (batch, 2 ** (q - 1))),
+                 torch.float32)
+
+        def kern():
+            return pk.ucry_msb_pallas(psi, th)
+
+        def plain():
+            return pk.ucry_msb_reference(psi, th)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        bar = SV_BAR[torch.float32] * float(want.abs().max())
+        if not (got.shape == want.shape and err <= bar):
+            raise AssertionError(f"ucry at 2^{q} x {batch}: {err} > {bar}")
+        del got, want
+        b_ms, b_by = bound(10.0 * n, 3.0 * n)
+        us = [u for k, u in device_per_call(kern) if SV_KERNELS["ucry"][2] in k]
+        row = dict(ms=median_ms(kern), plain_ms=median_ms(plain),
+                   device_us=us[0] if us else None, bound_ms=b_ms,
+                   bound_by=b_by, library_ms=None, max_abs_err=err)
+        table[f"17q_B{batch}_per_row"] = row
+        log("time", kernel="ucry", state=f"{batch} x 2^{q} f32, per-row angles",
+            kernel_ms=f"{row['ms']:.4f}",
+            device_us="not measured" if not us else f"{us[0]:.3f}",
+            plain_ms=f"{row['plain_ms']:.4f}", bound_us=f"{b_ms * 1e3:.3f}",
+            bound_by=b_by, err_over_bar=f"{err / bar:.3f}", card=f"'{card}'")
+    return table
+
+
 # -- phase 12: the fused single-layer train step (K5) -------------------------
 
 # the headline QKAN-layer step of benchmarks/fused_retune_probe.py
@@ -1632,19 +1827,23 @@ def device_per_call(fn, calls: int = 10) -> list:
     """(kernel, device µs a call) of ``fn``, largest first, from
     torch.profiler over ``calls`` calls: each kernel's mean time a launch
     times its launches a call, so a launch the profiler drops at the start
-    of its window does not count against the call."""
+    of its window does not count against the call.  A window in which the
+    profiler saw no device event is taken again, up to three times."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(3):
+        fn()
         torch.cuda.synchronize()
-    return sorted(((k, u / c * max(1, round(c / calls)))
-                   for k, u, c in device_events(prof) if c),
-                  key=lambda e: -e[1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [(k, u / c * max(1, round(c / calls)))
+                  for k, u, c in device_events(prof) if c]
+        if events:
+            break
+    return sorted(events, key=lambda e: -e[1])
 
 
 def time_step(device, card: str) -> dict:
@@ -1670,17 +1869,25 @@ def time_step(device, card: str) -> dict:
                 log("profile", shape=shape, step=step, kernel=key[:60],
                     device_us=f"{us:.3f}")
             if step == "fused_step":
-                step_us = [us for k, us in kernels if "fused_step_kernel" in k]
+                # the call's three kernels: K5, the dW pass, the loss sum
+                split = {part: sum(us for k, us in kernels if fn in k) or None
+                         for part, fn in (
+                             ("step_kernel_us", "fused_step_kernel"),
+                             ("dw_pass_us", PASS_KERNEL),
+                             ("loss_sum_us", "fused_step_loss_kernel"))}
+                log("profile", shape=shape, step=step, **{
+                    k: "not measured" if v is None else f"{v:.3f}"
+                    for k, v in split.items()})
         table[shape] = dict(
             times, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-            device_us=step_us[0] if step_us else None,
+            device_us=split["step_kernel_us"], **split,
             device_us_call=device_us["fused_step"],
             pair_device_us=device_us["pair_k3_k4"],
             torch_ops_device_us=device_us["torch_ops"])
         log("time", kernel="fused_step", shape=shape,
             kernel_ms=f"{times['ms']:.4f}",
-            device_us=("not measured" if not step_us
-                       else f"{step_us[0]:.3f}"),
+            device_us=("not measured" if split["step_kernel_us"] is None
+                       else f"{split['step_kernel_us']:.3f}"),
             plain_ms=f"{times['plain_ms']:.4f}",
             pair_k3_k4_ms=f"{times['pair_ms']:.4f}",
             torch_ops_ms=f"{times['torch_ops_ms']:.4f}",
@@ -1701,11 +1908,12 @@ M3_KERNELS = {
                ("true>", "Lb1E")),
     "m3_bwd_dw": ("experimental/pallas_layer.py:198", "m3_bwd_kernel",
                   ("false>", "Lb0E")),
-    # the cross-block sum of dM (the TPU grid carried it in dm_ref across
-    # its sequential steps)
-    "m3_dm_sum": ("experimental/pallas_layer.py:83", "m3_dm_sum_kernel", ()),
 }
 M3_WIDE = (4096, 16, 128, 8)  # B, N, K, dp1: the N16K128 variant
+# the pass tables' rows that the kernels line takes as the passes' own
+# numbers: layer 0 at B = 4096 (26 row blocks) and the M3 headline
+DW_HEAD = "dW_layer0_B4096"
+DM_HEAD = "dM_headline"
 
 
 def _m3_device_us(kernels: list, name: str):
@@ -1753,11 +1961,11 @@ def check_m3_kernels(device) -> dict:
     """Phase 13a: K12, K13, K14 and the dM pass against their plain
     versions on the card, twice on the same inputs (the same bits);
     returns the worst error of each over f32 inputs."""
-    worst = dict.fromkeys(M3_KERNELS, 0.0)
+    worst = dict.fromkeys([*M3_KERNELS, "m3_dm_sum"], 0.0)
     for name, x, m3, g in m3_cases(device):
         def run():
-            dx, part13 = pl3._bwd_pass(x, m3, g, True)
-            _, part14 = pl3._bwd_pass(x, m3, g, False)
+            dx, part13, _ = pl3._bwd_pass(x, m3, g, True)
+            _, part14, _ = pl3._bwd_pass(x, m3, g, False)
             return (qkan_layer_fused(x, m3), dx, pl3.m3_dm_partial_sum(part13),
                     pl3.m3_dm_partial_sum(part14), part14)
 
@@ -1874,9 +2082,10 @@ def run_m3_chain(device, paths: dict) -> float:
     return ms
 
 
-def m3_timing_cases(device, b, n, k, dp1) -> tuple:
+def m3_timing_cases(device, b, n, k, dp1, timed: bool = True) -> tuple:
     """Each kernel at one shape, f32: name -> (kernel call, plain call, one
-    PyTorch call or None, (bound ms, what bounds it)); and the inputs."""
+    PyTorch call or None, (bound ms, what bounds it)); and the inputs (only
+    those where ``timed`` is false)."""
     rng = np.random.default_rng(SEED + 16)
     if (b, n, k, dp1) == (HB, HN, HK, HDEG + 1):
         (x, _), w = headline_inputs(device)
@@ -1886,8 +2095,9 @@ def m3_timing_cases(device, b, n, k, dp1) -> tuple:
         m3 = torch.from_numpy(rng.normal(0, 1 / np.sqrt(dp1 * n), (dp1, n, k))
                               .astype(np.float32))
         x, m3 = x.to(device), m3.to(device)
+    if not timed:
+        return None, x, m3
     g = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(device)
-    _, part = pl3._bwd_pass(x, m3, g, False)
     mm = 2.0 * b * n * (dp1 - 1) * k  # flops of one contraction
     x_b, m_b, bk_b = 4.0 * b * n, 4.0 * dp1 * n * k, 4.0 * b * k
     cases = {
@@ -1900,10 +2110,6 @@ def m3_timing_cases(device, b, n, k, dp1) -> tuple:
         "m3_bwd_dw": (lambda: pl3._bwd_pass(x, m3, g, False),
                       lambda: qkan_layer_fused_bwd_reference(x, m3, g, False),
                       None, bound(x_b + m_b + bk_b, mm)),
-        "m3_dm_sum": (lambda: pl3.m3_dm_partial_sum(part),
-                      lambda: pl3.m3_dm_partial_sum_reference(part),
-                      lambda: torch.sum(part, dim=0),
-                      bound(4.0 * part.numel() + m_b, float(part.numel()))),
     }
     return cases, x, m3
 
@@ -1963,6 +2169,138 @@ def time_m3(device, card: str, step_table: dict) -> dict:
             log("profile", shape="headline", step=step, kernel=key[:60],
                 device_us=f"{us:.3f}")
     return table
+
+
+def time_backwards(device, card: str) -> dict:
+    """Phase 13c: each producer with its pass in one library call (K14 +
+    dM, K13 + dM at the M3 headline; K2 + dW at layer 0, B = 4096, and at
+    the train step's layer 0, B = 64, where the step is host-bound; K5 +
+    dW at the headline step), first held to the bits of the producer
+    followed by the pass alone.  Both routes go through the same wrapper
+    (``_bwd_pass`` / ``_step_pass``, with and without ``finish``): their
+    event ms and host µs a call, each timed in turns, and the one call's
+    device µs by kernel."""
+    (x, _), w = headline_inputs(device)
+    m3 = weights_to_m3(w, HN, HK)
+    w2 = m3.reshape(-1, HK).contiguous()
+    rng = np.random.default_rng(SEED + 18)
+    g = torch.from_numpy(rng.normal(size=(HB, HK)).astype(np.float32))
+    g = g.to(device)
+    dp1 = HDEG + 1
+
+    def m3_pair(want_dx):
+        return (lambda: pl3._bwd_pass(x, m3, g, want_dx, finish=True)[2],
+                lambda: pl3.m3_dm_partial_sum(
+                    pl3._bwd_pass(x, m3, g, want_dx)[1]))
+
+    def k2_pair(b, t_dim, want_dx):
+        xf = torch.from_numpy(rng.uniform(-2, 2, (b, SHAPE[0]))
+                              .astype(np.float32)).to(device)
+        w2f = torch.from_numpy(rng.normal(0, 0.05, (DP1 * SHAPE[0], t_dim))
+                               .astype(np.float32)).to(device)
+        gf = torch.from_numpy(rng.normal(size=(b, t_dim))
+                              .astype(np.float32)).to(device)
+        args = ("qkan_fused_dw_bwd", xf, w2f, gf, DP1, True, (0,), want_dx)
+        return (lambda: _bwd_pass(*args, finish=True)[2],
+                lambda: fused_bwd_partial_sum(_bwd_pass(*args)[1], b,
+                                              SHAPE[0], DP1, t_dim, want_dx))
+
+    calls = {
+        "k14_dm": m3_pair(False),
+        "k13_dm": m3_pair(True),
+        "k2_dw_layer0_B4096": k2_pair(4096, T, True),
+        "k2_dw_train_layer0_B64": k2_pair(TRAIN_BATCH, SHAPE[1], False),
+        "k5_dw": (lambda: _step_pass(x, w2, dp1, None, "sumsq", False,
+                                     finish=True)[2],
+                  lambda: fused_bwd_partial_sum(
+                      _step_pass(x, w2, dp1, None, "sumsq", False)[1], HB, HN,
+                      dp1, HK, False)),
+    }
+    table = {}
+    for name, (one, two) in calls.items():
+        got, want = one(), two()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: one call differs from the "
+                                 "producer and the pass alone")
+        one_ms, two_ms = paired_ms(one, two)
+        one_host, two_host = paired_host_us(one, two)
+        kernels = device_per_call(one)
+        row = dict(ms=one_ms, two_calls_ms=two_ms, host_us=one_host,
+                   two_calls_host_us=two_host,
+                   device_us_call=sum(us for _, us in kernels),
+                   device_us_by_kernel={k[:60]: us for k, us in kernels})
+        table[name] = row
+        log("time", backward=name, one_call_ms=f"{row['ms']:.4f}",
+            two_calls_ms=f"{row['two_calls_ms']:.4f}",
+            one_call_host_us=f"{one_host:.1f}",
+            two_calls_host_us=f"{two_host:.1f}",
+            device_us_call=f"{row['device_us_call']:.3f}", card=f"'{card}'")
+        for key, us in kernels[:4]:
+            log("profile", backward=name, kernel=key[:60],
+                device_us=f"{us:.3f}")
+    table["train_step_B64"] = time_step_backward_routes(card)
+    return table
+
+
+def time_step_backward_routes(card: str) -> dict:
+    """Phase 13c, end to end where the host sets the pace: the flagship's
+    forward and backward at batch 64 through autograd (4 K1, 4 K2 with
+    their dW passes; layer 0 without dx), 30 steps back to back a window.
+    The backwards take the pass in the producer's call, or as a call of
+    its own (``fused_layer._launch_bwd`` swapped for the two-call route);
+    windows in turns, ms a step for each; the two routes' gradients are
+    first held to the same bits."""
+    rng = np.random.default_rng(SEED + 19)
+    x = torch.from_numpy(rng.uniform(-1, 1, (TRAIN_BATCH, SHAPE[0]))
+                         .astype(np.float32)).to("cuda")
+    ws = [torch.from_numpy(rng.normal(0, 1 / np.sqrt(DP1 * n), (DP1 * n, t))
+                           .astype(np.float32)).to("cuda").requires_grad_()
+          for n, t in zip(SHAPE[:-1], SHAPE[1:])]
+
+    def step():
+        h = x
+        for w in ws:
+            h = kan_layer_fused_dw(h, w, DP1)
+        return torch.autograd.grad(torch.sum(h * h), ws)
+
+    one = fl._launch_bwd
+
+    def two(entry, xx, w2, g, dp1, apply_tanh, extra, want_dx):
+        dx, wsp, _ = _bwd_pass(entry, xx, w2, g, dp1, apply_tanh, extra,
+                               want_dx)
+        return dx, fused_bwd_partial_sum(wsp, xx.shape[0], xx.shape[1], dp1,
+                                         w2.shape[1], want_dx)
+
+    def window(route, steps: int = 30):
+        fl._launch_bwd = route
+        try:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                grads = step()
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / steps, grads
+        finally:
+            fl._launch_bwd = one
+
+    _, g_one = window(one, 3)
+    _, g_two = window(two, 3)
+    if not all(torch.equal(a, b) for a, b in zip(g_one, g_two)):
+        raise AssertionError("train step B64: the two backward routes differ")
+    times = {"one_call": [], "two_calls": []}
+    for i in range(8):
+        for name in (("one_call", "two_calls") if i % 2 == 0
+                     else ("two_calls", "one_call")):
+            times[name].append(window(one if name == "one_call" else two)[0])
+    row = {k: float(np.median(v)) for k, v in times.items()}
+    log("time", backward="train_step_B64", one_call_ms_a_step=
+        f"{row['one_call']:.4f}", two_calls_ms_a_step=f"{row['two_calls']:.4f}",
+        windows=len(times["one_call"]), card=f"'{card}'")
+    return row
 
 
 # -- phase 14: the sharded statevector and the fused exchange (K11) -------------
@@ -2352,6 +2690,7 @@ def main() -> int:
         paths["serve"], _ = run_slice(device, Path(tmp))
         errs.update(check_backward(device))
         table = time_all(device, smi)
+        pass_table = time_passes(pass_cases(device, "dw"), smi)
         train_paths, step_ms = run_training(device, Path(tmp))
         profile_device_time(device, Path(tmp), smi)
     paths.update(train_paths)
@@ -2359,6 +2698,7 @@ def main() -> int:
     quantum_paths, quantum_ms, quantum_calls = run_quantum_slice(device)
     paths.update(quantum_paths)
     sv_table, sv_timed_errs = time_statevector(device, smi)
+    ucry_table = time_ucry_launch_shapes(device, smi)
     for name, err in sv_timed_errs.items():
         sv_errs[name] = max(sv_errs[name], err)
     profile_quantum(quantum_calls, smi)
@@ -2366,9 +2706,12 @@ def main() -> int:
     errs["fused_step"] = check_step_kernel(device)
     headline_ms = run_headline(device, paths)
     step_table = time_step(device, smi)
+    pass_table.update(time_passes(pass_cases(device, "k5"), smi))
     m3_errs = check_m3_kernels(device)
     m3_chain_ms = run_m3_chain(device, paths)
     m3_table = time_m3(device, smi, step_table)
+    pass_table.update(time_passes(pass_cases(device, "dm"), smi))
+    backward_table = time_backwards(device, smi)
     mesh8 = make_mesh(SLOTS, devices=[device] * SLOTS)
     exchange_err = check_exchange_kernel(device)
     sharded_ms = run_sharded_layer(device, mesh8, paths)
@@ -2381,10 +2724,6 @@ def main() -> int:
         "fused_dw_bwd": ("csrc/fused_dw_bwd.cu", "ops/fused_layer.py:462"),
         "fused_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:117"),
         "fused_bwd": ("csrc/fused_dw_bwd.cu", "ops/fused_layer.py:143"),
-        # the cross-block sum of the backwards' dW (the TPU grid carried
-        # it in dw_ref across its sequential steps)
-        "fused_bwd_partial_sum": ("csrc/fused_dw_bwd.cu",
-                                  "ops/fused_layer.py:469"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():
@@ -2404,6 +2743,33 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "at": "x[4096,784], 'high', f32",
+        })
+    # the two fixed-order passes, one kernel: the cross-block sums that the
+    # TPU grids carried in dw_ref / dm_ref across their sequential steps
+    for name, tpu, head, err in (
+            ("fused_bwd_partial_sum", "ops/fused_layer.py:469", DW_HEAD,
+             errs["fused_bwd_partial_sum"]),
+            ("m3_dm_sum", "experimental/pallas_layer.py:83", DM_HEAD,
+             m3_errs["m3_dm_sum"])):
+        t = pass_table[head]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "qkan_implementation_tpu_torch/csrc/partial_sum.cu",
+            "replaces": f"qkan_implementation_tpu/{tpu}",
+            "launches": sum(c[name] for c in paths.values()),
+            "launches_by_path": {p: c[name] for p, c in paths.items()
+                                 if c[name]},
+            "max_abs_err": max(err, *(r["max_abs_err"]
+                                      for k, r in pass_table.items()
+                                      if k[:2] == head[:2])),
+            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_us",
+                                 "library_device_us")},
+            "bound_us": t["bound_ms"] * 1e3,
+            "at": head,
+            "at_pass_shapes": {k: v for k, v in pass_table.items()
+                               if k[:2] == head[:2]},
         })
     for name, (tpu, counters, _) in SV_KERNELS.items():
         t, t21 = sv_table[(name, 27)], sv_table[(name, 21)]
@@ -2427,6 +2793,8 @@ def main() -> int:
             "at_21_qubits_l2": {k: t21[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "device_us")},
         })
+        if name == "ucry":
+            kernels[-1]["at_launch_shapes"] = ucry_table
         if not kernels[-1]["launches"]:
             raise AssertionError(f"{name} was never launched on a main path")
     t, t0 = step_table["headline"], step_table["layer0_B4096_mse"]
@@ -2485,7 +2853,8 @@ def main() -> int:
               "one exchange = 8 launches",
         "h": {**th, "bound_us": th["bound_ms"] * 1e3},
     })
-    for name in [*sources, "fused_step", *M3_KERNELS, "exchange_ucry",
+    for name in [*sources, "fused_bwd_partial_sum", "fused_step",
+                 *M3_KERNELS, "m3_dm_sum", "exchange_ucry",
                  "exchange_h"]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
@@ -2502,6 +2871,8 @@ def main() -> int:
         "batch": HB, **{k: m3_table[k] for k in (
             "m3_step_from_w", "m3_step_from_m3")},
         "card": smi}}), flush=True)
+    print(json.dumps({"backwards_one_call": {**backward_table,
+                                             "card": smi}}), flush=True)
     print(json.dumps({"sharded": {**sharded_ms, "slots": SLOTS,
                                   "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -35,11 +35,11 @@
 // overlaps), reads g as a broadcast, runs the T and U recurrences in
 // registers and writes dx[r, i] coalesced along `in`.  The g.W_d dot is
 // split into four partial sums to shorten its dependency chain.  Each
-// block writes its dW partial to a workspace; a second kernel (its own
-// entry, qkan_fused_bwd_partial_sum, launched next by the wrapper) sums the
-// partials over row blocks in a fixed order.  No float atomics, so a run
-// gives the same bits every time.  Rows per block are chosen so that the
-// partials stay under 4 MB.  Past DC degrees (large dp1 or T) the degree
+// block writes its dW partial to a workspace; the fixed-order pass of
+// partial_sum.cu sums the partials over row blocks (launched by the entry
+// itself when given dw, or by qkan_fused_bwd_partial_sum).  No float
+// atomics, so a run gives the same bits every time.  Rows per block are
+// chosen so that the partials stay under 4 MB.  Past DC degrees (large dp1 or T) the degree
 // chunks run as successive launches that carry dt through a [B, in] f32
 // workspace, so the whole domain of the forward (dp1 <= 32, T <= 64)
 // trains.  want_dx = 0 skips dx (an input that needs no gradient).
@@ -265,31 +265,6 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
   }
 }
 
-// The fixed-order pass: dw[d, i, c] = sum over row blocks of the partials,
-// in row-block order.  dW_0 rows all take the colsum(g) sum.
-__global__ void fused_bwd_partial_sum_kernel(const float* __restrict__ part,
-                                             const float* __restrict__ gpart,
-                                             float* __restrict__ dw, int nrb,
-                                             int in, int dp1, int T) {
-  const size_t per_d = (size_t)in * T;
-  const size_t total = (size_t)dp1 * per_d;
-  const size_t stride = (size_t)(dp1 - 1) * per_d;  // one row block's share
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += (size_t)gridDim.x * blockDim.x) {
-    const size_t d = idx / per_d;
-    const size_t rem = idx - d * per_d;
-    float s = 0.f;
-    if (d == 0) {
-      const size_t c = rem % T;
-      for (int rb = 0; rb < nrb; ++rb) s += gpart[(size_t)rb * T + c];
-    } else {
-      const float* p = part + (d - 1) * per_d + rem;
-      for (int rb = 0; rb < nrb; ++rb) s += p[(size_t)rb * stride];
-    }
-    dw[idx] = s;
-  }
-}
-
 // -- the fused single-layer train step (entry qkan_fused_step) ---------------
 //
 // Replaces _step_kernel of qkan_implementation_tpu/ops/fused_layer.py (the
@@ -315,7 +290,7 @@ __global__ void fused_bwd_partial_sum_kernel(const float* __restrict__ part,
 // K3 + K4 pair, which builds the basis twice and writes out and reads g).
 //
 // Schedule.  A block owns `rows` batch rows, from K2's layout() with
-// want_dx = 0, so the workspace is K2's and qkan_fused_bwd_partial_sum
+// want_dx = 0, so the workspace is K2's and the same fixed-order pass
 // turns it into dW unchanged.  A block must own whole rows: g[r, :] needs
 // out[r, :], which needs every feature, so features are not split across
 // blocks.  The rows go in super-tiles of up to 8192 / TP rows, whose g
@@ -699,10 +674,20 @@ size_t workspace_bytes(const Layout& L) {
   return (L.part_floats + L.gpart_floats + L.dt_floats) * sizeof(float);
 }
 
+// dw [dp1*in, T] from a workspace's partials: dW_d (d >= 1) summed over the
+// row blocks, and colsum(g) summed once and written to all `in` rows of
+// dW_0; one launch of the fixed-order pass
+cudaError_t sum_workspace(const float* ws, const Layout& L, int in, int dp1,
+                          int T, float* dw, cudaStream_t s) {
+  return qkan::partial_sum(ws, (long long)(dp1 - 1) * in * T, L.nrb,
+                           dw + (size_t)in * T, ws + L.part_floats, T, in, dw,
+                           s);
+}
+
 int run(const void* x, const void* w2, const void* g, void* dx, void* ws,
         long long ws_bytes, int B, int in, int dp1, int T,
         int x_is_bf16, int round_bf16, int apply_tanh, int want_dx,
-        void* stream) {
+        void* dw, void* stream) {
   if (bad_shape(B, in, dp1, T) || (want_dx && dx == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -724,7 +709,8 @@ int run(const void* x, const void* w2, const void* g, void* dx, void* ws,
               ? dispatch_tp<float, true>(x, w, gg, dx, f, L, B, in, dp1, T, apply_tanh, want_dx, s)
               : dispatch_tp<float, false>(x, w, gg, dx, f, L, B, in, dp1, T, apply_tanh, want_dx, s);
   }
-  return (int)err;
+  if (err != cudaSuccess || dw == nullptr) return (int)err;
+  return (int)sum_workspace(f, L, in, dp1, T, static_cast<float*>(dw), s);
 }
 
 }  // namespace
@@ -750,34 +736,40 @@ extern "C" int qkan_fused_bwd_launches(int dp1, int T) {
   return degree_chunks(dp1, degree_chunk(qkan::pad_t(T)));
 }
 
-// C entry points of the per-block pass.  x: [B, in] f32 (x_is_bf16=0) or
-// bf16 (1); w2: [dp1*in, T] f32; g: [B, T] f32; dx: [B, in] in x's dtype
-// (may be null when want_dx = 0); ws: the workspace, of at least
-// qkan_fused_bwd_workspace_bytes, which receives the partials.  All
-// contiguous.  Each returns the CUDA error of its launches (0 on success),
-// allocates nothing and does not synchronise.
+// C entry points of the backward.  x: [B, in] f32 (x_is_bf16=0) or bf16
+// (1); w2: [dp1*in, T] f32; g: [B, T] f32; dx: [B, in] in x's dtype (may be
+// null when want_dx = 0); ws: the workspace, of at least
+// qkan_fused_bwd_workspace_bytes, which receives the partials; dw: [dp1*in,
+// T] f32, or null.  Given dw, the fixed-order pass that sums the partials
+// into it is launched next on the same stream (one call a backward); else
+// the caller runs qkan_fused_bwd_partial_sum.  All contiguous.  Each
+// returns the CUDA error of its launches (0 on success), allocates nothing
+// and does not synchronise.
 //
 // Degree-wise layer (kan_layer_fused_dw); round_bf16 selects 'bf16'.
 extern "C" int qkan_fused_dw_bwd(const void* x, const void* w2, const void* g,
                                  void* dx, void* ws, long long ws_bytes, int B,
                                  int in, int dp1, int T, int x_is_bf16,
                                  int round_bf16, int apply_tanh, int want_dx,
-                                 void* stream) {
+                                 void* dw, void* stream) {
   return run(x, w2, g, dx, ws, ws_bytes, B, in, dp1, T, x_is_bf16,
-             round_bf16, apply_tanh, want_dx, stream);
+             round_bf16, apply_tanh, want_dx, dw, stream);
 }
 
 // v1 layer (kan_layer_fused): 'high'/'default' only.
 extern "C" int qkan_fused_bwd(const void* x, const void* w2, const void* g,
                               void* dx, void* ws, long long ws_bytes, int B,
                               int in, int dp1, int T, int x_is_bf16,
-                              int apply_tanh, int want_dx, void* stream) {
+                              int apply_tanh, int want_dx, void* dw,
+                              void* stream) {
   return run(x, w2, g, dx, ws, ws_bytes, B, in, dp1, T, x_is_bf16, 0,
-             apply_tanh, want_dx, stream);
+             apply_tanh, want_dx, dw, stream);
 }
 
-// The fixed-order pass over a workspace that either entry above filled
-// for the same (B, in, dp1, T, want_dx): dw [dp1*in, T] f32.
+// The fixed-order pass alone, over a workspace that an entry above or
+// qkan_fused_step filled for the same (B, in, dp1, T, want_dx): dw
+// [dp1*in, T] f32, in the order of qkan_partial_sum_segments(nrb,
+// (dp1-1)*in*T).
 extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
                                           void* dw, int B, int in, int dp1,
                                           int T, int want_dx, void* stream) {
@@ -786,14 +778,9 @@ extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
   if (ws_bytes < 0 || (size_t)ws_bytes < workspace_bytes(L)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* part = static_cast<const float*>(ws);
-  const size_t total = (size_t)dp1 * in * T;
-  size_t blocks = (total + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  fused_bwd_partial_sum_kernel<<<(unsigned)blocks, 256, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      part, part + L.part_floats, static_cast<float*>(dw), L.nrb, in, dp1, T);
-  return (int)cudaGetLastError();
+  return (int)sum_workspace(static_cast<const float*>(ws), L, in, dp1, T,
+                            static_cast<float*>(dw),
+                            static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of workspace a train step needs: a backward's with want_dx = 0
@@ -808,16 +795,17 @@ extern "C" long long qkan_fused_step_workspace_bytes(int B, int in, int dp1,
 // The fused train step (kan_train_step_fused).  x: [B, in] f32
 // (x_is_bf16=0) or bf16 (1); w2: [dp1*in, T] f32; y: [B, T] f32 for 'mse',
 // null for 'sumsq' (then never read); loss: one f32; ws: at least
-// qkan_fused_step_workspace_bytes.  All contiguous.  Launches the step
-// kernel and the one-block loss sum; dW then comes from
-// qkan_fused_bwd_partial_sum over ws with want_dx = 0.  Returns the CUDA
-// error of the launches (0 on success), allocates nothing and does not
-// synchronise.
+// qkan_fused_step_workspace_bytes; dw: [dp1*in, T] f32, or null.  All
+// contiguous.  Launches the step kernel, the one-block loss sum and, given
+// dw, the fixed-order pass into it (one call a step); without dw, dW comes
+// from qkan_fused_bwd_partial_sum over ws with want_dx = 0.  Returns the
+// CUDA error of the launches (0 on success), allocates nothing and does
+// not synchronise.
 extern "C" int qkan_fused_step(const void* x, const void* w2, const void* y,
                                void* loss, void* ws, long long ws_bytes,
                                int B, int in, int dp1, int T, int x_is_bf16,
                                int apply_tanh, float g_scale,
-                               float loss_scale, void* stream) {
+                               float loss_scale, void* dw, void* stream) {
   if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
   const Layout L = layout(B, in, dp1, T, 0);
   if (ws_bytes < 0 ||
@@ -833,5 +821,6 @@ extern "C" int qkan_fused_step(const void* x, const void* w2, const void* y,
       x_is_bf16
           ? dispatch_step<__nv_bfloat16>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s)
           : dispatch_step<float>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-  return (int)err;
+  if (err != cudaSuccess || dw == nullptr) return (int)err;
+  return (int)sum_workspace(f, L, in, dp1, T, static_cast<float*>(dw), s);
 }

@@ -2,7 +2,8 @@
 // (fused_dw_fwd.cu, fused_dw_bwd.cu) bf16 rounding, loads and stores in x's
 // dtype, and one step of the Chebyshev recurrence rounded as torch rounds
 // it; for the streaming kernels (statevector.cu) the grid of a
-// grid-stride pass.
+// grid-stride pass; for the backwards (fused_dw_bwd.cu, qkan_layer_m3.cu)
+// the launch of the fixed-order partial-sum pass.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,5 +53,15 @@ inline int stream_grid(long long total, int threads, int per_sm = 8) {
   const long long cap = (long long)sms * per_sm;
   return (int)(want < cap ? want : cap);
 }
+
+// The fixed-order partial-sum pass (partial_sum.cu), launched by the
+// backward kernels' entries after their per-block kernel: out [per] = the
+// sum over b of part [nblk, per] in the order of partial_sum_segments; where
+// gpart [nblk, T] is given, its column sums, in the same order, go to every
+// row of out_b [rows, T].  One launch on `stream`; returns its error.
+int partial_sum_segments(int nblk, long long per);
+cudaError_t partial_sum(const float* part, long long per, int nblk,
+                        float* out, const float* gpart, int T, int rows,
+                        float* out_b, cudaStream_t stream);
 
 }  // namespace qkan

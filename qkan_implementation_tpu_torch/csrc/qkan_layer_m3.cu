@@ -41,9 +41,10 @@
 //       At narrow layers (fewer such items than threads) the rows are dealt
 //       to row groups whose sums are added in shared memory in row-group
 //       order; past the threads, the items run in passes over the range.
-//       The block writes its partial [dp1, N, K] to a workspace, and a
-//       second kernel (entry qkan_m3_dm_sum) adds the partials in block
-//       order.  No float atomics: the same bits on every run.
+//       The block writes its partial [dp1, N, K] to a workspace, and the
+//       fixed-order pass of partial_sum.cu adds the partials (launched by
+//       qkan_m3_bwd itself when given dm, or by qkan_m3_dm_sum).  No float
+//       atomics: the same bits on every run.
 //   dx (want_dx): after the dM sums of a tile, one thread a row runs the U
 //       recurrence, takes g.M3[d, n, :] with g's row (in registers up to 32
 //       columns) against M3 rows read as broadcasts, and writes dx into the
@@ -409,18 +410,6 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
   }
 }
 
-// dm[i] = sum over blocks of part[blk][i], in block order
-__global__ void __launch_bounds__(256)
-m3_dm_sum_kernel(const float* __restrict__ part, float* __restrict__ dm,
-                 int nblk, long long per) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < per; i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int b = 0; b < nblk; ++b) s += part[(size_t)b * per + i];
-    dm[i] = s;
-  }
-}
-
 template <typename F>
 cudaError_t allow_smem(F kernel, long long bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -549,13 +538,16 @@ extern "C" int qkan_m3_fwd(const void* x, const void* m3, void* out,
 // Backward pass: x [B, N] and g [B, K] in x's dtype, m3 [dp1, N, K] f32
 // (not read when want_dx = 0), dx [B, N] in x's dtype (null when want_dx =
 // 0), part: qkan_m3_bwd_blocks(...) x dp1 x N x K f32 of at least
-// part_bytes, which receives each block's dM partial.  All contiguous,
-// B >= 1.  Returns the CUDA error of the launch (0 on success), allocates
-// nothing, does not synchronise.
+// part_bytes, which receives each block's dM partial; dm [dp1, N, K] f32,
+// or null.  Given dm, the fixed-order pass that sums the partials into it
+// is launched next on the same stream (one call a backward); else the
+// caller runs qkan_m3_dm_sum.  All contiguous, B >= 1.  Returns the CUDA
+// error of the launches (0 on success), allocates nothing, does not
+// synchronise.
 extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
                            void* dx, void* part, long long part_bytes,
                            long long B, int N, int dp1, int K, int x_is_bf16,
-                           int want_dx, void* stream) {
+                           int want_dx, void* dm, void* stream) {
   if (bad_shape(B, N, dp1, K) || B < 1 || (want_dx && dx == nullptr) ||
       bwd_tile_rows(N, dp1, K, want_dx) == 0) {
     return (int)cudaErrorInvalidValue;
@@ -573,18 +565,18 @@ extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
     err = want_dx ? dispatch_bwd<float, true>(x, m, g, dx, f, B, N, dp1, K, s)
                   : dispatch_bwd<float, false>(x, m, g, dx, f, B, N, dp1, K, s);
   }
-  return (int)err;
+  if (err != cudaSuccess || dm == nullptr) return (int)err;
+  return (int)qkan::partial_sum(f, (long long)dp1 * N * K, (int)nblk,
+                                static_cast<float*>(dm), nullptr, 0, 0,
+                                nullptr, s);
 }
 
-// The fixed-order pass: dm [per] f32 = the sum of part [nblk, per] over its
-// first axis, in order.
+// The fixed-order pass alone: dm [per] f32 = the sum of part [nblk, per]
+// over its first axis, in the order of qkan_partial_sum_segments.
 extern "C" int qkan_m3_dm_sum(const void* part, void* dm, int nblk,
                               long long per, void* stream) {
   if (nblk < 1 || per < 1) return (int)cudaErrorInvalidValue;
-  long long blocks = (per + 255) / 256;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  m3_dm_sum_kernel<<<(unsigned)blocks, 256, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(part), static_cast<float*>(dm), nblk, per);
-  return (int)cudaGetLastError();
+  return (int)qkan::partial_sum(static_cast<const float*>(part), per, nblk,
+                                static_cast<float*>(dm), nullptr, 0, 0,
+                                nullptr, static_cast<cudaStream_t>(stream));
 }

@@ -29,9 +29,12 @@ Each function has two versions:
 - CUDA kernels (``csrc/qkan_layer_m3.cu``) for f32 or bf16 x with f32 M3:
   K12 ``qkan_m3_fwd``, K13 ``qkan_m3_bwd`` with dx, K14 the same entry
   without dx, and the fixed-order sum of the backward's per-block dM
-  partials (``m3_dm_partial_sum``).  A CUDA tensor launches them or
-  raises (ValueError for an f64 tensor or an M3 over the kernels'
-  shared-memory budget): there is no fallback to the plain version.
+  partials (``csrc/partial_sum.cu``), which ``qkan_m3_bwd`` launches in
+  the same library call (one call a backward; ``m3_dm_partial_sum`` runs
+  it alone; ``ops.fused_layer.fixed_order_sum_reference`` is its plain
+  version in its own order).  A CUDA tensor launches them or raises
+  (ValueError for an f64 tensor or an M3 over the kernels' shared-memory
+  budget): there is no fallback to the plain version.
 
 ``qkan_layer_fused`` and ``qkan_layer_fused_dw`` are differentiable in x
 and M3 through one ``torch.autograd.Function``: the backward runs K13 when
@@ -168,9 +171,12 @@ def _launch_fwd(x: torch.Tensor, m3: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _bwd_pass(x, m3, g, want_dx: bool):
+def _bwd_pass(x, m3, g, want_dx: bool, finish: bool = False):
     """K13 (``want_dx``) or K14: (dx or None, the per-block dM partials
-    [nblk, D+1, N, K] f32, or None at B = 0)."""
+    [nblk, D+1, N, K] f32 or None at B = 0, dM or None).  With ``finish``
+    the same library call launches the fixed-order pass too (counted on
+    ``m3_dm_partial_sum.launches``), into dM [D+1, N, K] f32, a tensor of
+    its own; at B = 0 dM is zeros and nothing launches."""
     lib, b, n, dp1, k = _check_args(x, m3, _BWD if want_dx else _BWD_DW)
     g = g.to(x.dtype).contiguous()
     if g.device != x.device or tuple(g.shape) != (b, k):
@@ -180,27 +186,34 @@ def _bwd_pass(x, m3, g, want_dx: bool):
         )
     dx = torch.empty_like(x) if want_dx else None
     if b == 0:
-        return dx, None
+        return dx, None, torch.zeros_like(m3) if finish else None
     nblk = lib.qkan_m3_bwd_blocks(b, n, dp1, k, int(want_dx))
     part = torch.empty((nblk, dp1, n, k), dtype=torch.float32,
                        device=x.device)
+    dm = (torch.empty((dp1, n, k), dtype=torch.float32, device=x.device)
+          if finish else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.qkan_m3_bwd(
             x.data_ptr(), m3.data_ptr(), g.data_ptr(),
             dx.data_ptr() if want_dx else None, part.data_ptr(),
             part.numel() * 4, b, n, dp1, k, int(x.dtype == torch.bfloat16),
-            int(want_dx), stream,
+            int(want_dx), dm.data_ptr() if finish else None, stream,
         )
     _raise_on_error(lib, err, "qkan_m3_bwd")
     _count(qkan_layer_fused, "bwd_launches" if want_dx else "bwd_dw_launches")
-    return dx, part
+    if finish:
+        _count(m3_dm_partial_sum, "launches")
+    return dx, part, dm
 
 
 def m3_dm_partial_sum(part: torch.Tensor) -> torch.Tensor:
     """dM [D+1, N, K] f32 from a backward pass's partials [nblk, D+1, N, K]:
-    their sum over blocks in a fixed order (kernel ``qkan_m3_dm_sum``).
-    Counts ``m3_dm_partial_sum.launches``."""
+    their sum over blocks in the fixed order of ``ops.fused_layer``'s
+    ``fixed_order_sum_reference(part, partial_sum_segments(nblk, per))``
+    (the pass alone, entry ``qkan_m3_dm_sum``; the backward launches it
+    itself).  Counts ``m3_dm_partial_sum.launches``, as the backward does
+    where it launches the pass."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
@@ -218,10 +231,9 @@ m3_dm_partial_sum.launches = 0
 
 
 def _launch_bwd(x, m3, g, want_dx: bool) -> tuple:
-    dx, part = _bwd_pass(x, m3, g, want_dx)
-    if part is None:
-        return dx, torch.zeros_like(m3)
-    return dx, m3_dm_partial_sum(part)
+    """K13 or K14 and the dM pass, in one library call: (dx or None, dm)."""
+    dx, _, dm = _bwd_pass(x, m3, g, want_dx, finish=True)
+    return dx, dm
 
 
 # -- the layer --------------------------------------------------------------

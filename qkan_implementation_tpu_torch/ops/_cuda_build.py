@@ -141,11 +141,13 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_bwd_row_blocks.restype = i
             lib.qkan_fused_bwd_launches.argtypes = [i, i]
             lib.qkan_fused_bwd_launches.restype = i
+            # the backwards and the step take dw (or null) before the
+            # stream: given it, they launch the fixed-order pass too
             lib.qkan_fused_dw_bwd.argtypes = [
-                p, p, p, p, p, ll, i, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, ll, i, i, i, i, i, i, i, i, p, p,
             ]
             lib.qkan_fused_bwd.argtypes = [
-                p, p, p, p, p, ll, i, i, i, i, i, i, i, p,
+                p, p, p, p, p, ll, i, i, i, i, i, i, i, p, p,
             ]
             lib.qkan_fused_bwd_partial_sum.argtypes = [
                 p, ll, p, i, i, i, i, i, p,
@@ -154,8 +156,11 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_step_workspace_bytes.restype = ll
             f = ctypes.c_float
             lib.qkan_fused_step.argtypes = [
-                p, p, p, p, p, ll, i, i, i, i, i, i, f, f, p,
+                p, p, p, p, p, ll, i, i, i, i, i, i, f, f, p, p,
             ]
+            # the fixed-order partial-sum pass (csrc/partial_sum.cu)
+            lib.qkan_partial_sum_segments.argtypes = [i, ll]
+            lib.qkan_partial_sum_segments.restype = i
             # statevector kernels (csrc/statevector.cu)
             lib.qkan_ucry_cs.argtypes = [p, p, p, p, ll, i, ll, i, i, p]
             lib.qkan_ucry.argtypes = [p, p, p, ll, i, ll, i, i, p]
@@ -170,7 +175,7 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_m3_bwd_blocks.restype = i
             lib.qkan_m3_fwd.argtypes = [p, p, p, ll, i, i, i, i, p]
             lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i,
-                                        i, p]
+                                        i, p, p]
             lib.qkan_m3_dm_sum.argtypes = [p, p, i, ll, p]
             # the global-qubit exchange with its 2x2 (csrc/exchange.cu)
             lib.qkan_exchange_ucry.argtypes = [p, p, p, p, p, ll, i, i, p]

@@ -27,6 +27,13 @@ Each function has two versions:
   never writes the [B, dp1*in] basis to device memory.  A CUDA tensor
   launches it or raises: there is no fallback to the plain version.
 
+A backward (and the train step) writes per-block dW partials to a
+workspace and sums them with the fixed-order pass of
+``csrc/partial_sum.cu``, launched by the same library call: one call a
+backward.  ``fixed_order_sum_reference`` is that pass's plain version in
+its own order (equal to it bit for bit); ``fused_bwd_partial_sum`` runs
+the pass alone over a workspace.
+
 ``kan_layer_fused_dw`` and ``kan_layer_fused`` are differentiable in x and
 w2 through one ``torch.autograd.Function`` each: forward and backward both
 run the kernel on a CUDA tensor and the plain version on a CPU tensor, so
@@ -207,7 +214,41 @@ def kan_layer_fused_bwd_reference(
     return dx.to(x.dtype), dw.contiguous()
 
 
+def fixed_order_sum_reference(part: torch.Tensor,
+                              segments: int) -> torch.Tensor:
+    """The sum of ``part`` [nblk, ...] over its first axis in the order of
+    the CUDA pass (``csrc/partial_sum.cu``): the partials cut into
+    ``segments`` runs of ceil(nblk / segments), each summed from 0 one add
+    at a time in block order, then the run sums added from 0 in run order.
+    Each add is one IEEE rounding in part's dtype on either side, so the
+    f32 kernel equals this bit for bit; ``segments = 1`` is the plain
+    in-order loop.  The card's order takes ``partial_sum_segments``."""
+    nblk = part.shape[0]
+    if not 1 <= segments <= nblk:
+        raise ValueError(
+            f"segments must be in [1, {nblk}] for {nblk} partials, got "
+            f"{segments}"
+        )
+    seg_len = -(-nblk // segments)
+    total = torch.zeros(part.shape[1:], dtype=part.dtype, device=part.device)
+    for s in range(segments):
+        acc = torch.zeros_like(total)
+        for b in range(s * seg_len, min((s + 1) * seg_len, nblk)):
+            acc.add_(part[b])
+        total.add_(acc)
+    return total
+
+
 # -- CUDA launches ----------------------------------------------------------
+
+
+def partial_sum_segments(nblk: int, per: int) -> int:
+    """Segments of the fixed-order pass over ``nblk`` partials of ``per``
+    floats (C entry ``qkan_partial_sum_segments``): a function of the two
+    alone, so the pass gives the same bits on every call."""
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+
+    return load_library().qkan_partial_sum_segments(nblk, per)
 
 
 def _check_layer_args(x, w2, dp1):
@@ -267,11 +308,14 @@ def _launch_fwd(entry: str, x, w2, dp1, apply_tanh, extra: tuple):
 
 
 def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
-              want_dx: bool):
-    """The per-block pass of a backward kernel (``qkan_fused_dw_bwd`` or
-    ``qkan_fused_bwd``): dx (or None) and the workspace of dW partials.
-    Counts one launch per degree chunk (one at the flagship's dp1 and T);
-    a B = 0 input launches and counts nothing."""
+              want_dx: bool, finish: bool = False):
+    """A backward kernel (``qkan_fused_dw_bwd`` or ``qkan_fused_bwd``):
+    (dx or None, the workspace of dW partials, dW or None).  With
+    ``finish`` the same library call launches the fixed-order pass too,
+    into dW [dp1*in, T] f32, a tensor of its own.  Counts one launch per
+    degree chunk (one at the flagship's dp1 and T) and, with ``finish``,
+    one of the pass; a B = 0 input launches and counts nothing (dW is
+    zeros)."""
     b, n, t_dim = _check_layer_args(x, w2, dp1)
     g = g.to(torch.float32).contiguous()
     if g.device != x.device or tuple(g.shape) != (b, t_dim):
@@ -289,26 +333,32 @@ def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
     # per-block dW partials (and, past one degree chunk, dt): the kernel
     # allocates nothing itself
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+    dw = (torch.empty((dp1 * n, t_dim), dtype=torch.float32, device=x.device)
+          if finish else None)
     if b == 0:
-        return dx, ws.zero_()
+        return dx, ws.zero_(), None if dw is None else dw.zero_()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
             x.data_ptr(), w2.data_ptr(), g.data_ptr(),
             dx.data_ptr() if want_dx else None, ws.data_ptr(), ws_bytes, b,
             n, dp1, t_dim, int(x.dtype == torch.bfloat16), *extra,
-            int(bool(apply_tanh)), int(want_dx), stream,
+            int(bool(apply_tanh)), int(want_dx),
+            dw.data_ptr() if dw is not None else None, stream,
         )
     _raise_on_error(lib, err, entry)
     _count(*_COUNTER_OF[entry], lib.qkan_fused_bwd_launches(dp1, t_dim))
-    return dx, ws
+    if finish:
+        _count(fused_bwd_partial_sum, "launches")
+    return dx, ws, dw
 
 
 def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True):
     """dW [dp1*in, T] f32 from the workspace of a backward pass at these
-    sizes: the partials summed over row blocks in a fixed order (kernel
-    ``qkan_fused_bwd_partial_sum``).  Counts
-    ``fused_bwd_partial_sum.launches``."""
+    sizes: the partials summed over row blocks in a fixed order (the pass
+    alone, entry ``qkan_fused_bwd_partial_sum``; the backwards launch it
+    themselves).  Counts ``fused_bwd_partial_sum.launches``, as do the
+    backwards and the train step where they launch it."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
@@ -327,24 +377,46 @@ def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True):
 fused_bwd_partial_sum.launches = 0
 
 
-def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim):
-    """Plain torch version of ``fused_bwd_partial_sum``: the same sums
-    over the [row blocks, ...] partials of a workspace on the card."""
+def fused_bwd_workspace_partials(ws, b, n, dp1, t_dim) -> tuple:
+    """Views of a backward's (or a train step's) workspace on the card:
+    the dW_d (d >= 1) partials [nrb, (dp1-1)*in*T] and the colsum(g)
+    partials [nrb, T], nrb row blocks.  The pass sums both in the order of
+    ``partial_sum_segments(nrb, (dp1-1)*in*T)``."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     nrb = load_library().qkan_fused_bwd_row_blocks(max(b, 1), n, dp1, t_dim)
     f = ws.view(torch.float32)
     per_rb = (dp1 - 1) * n * t_dim
-    part = f[: nrb * per_rb].view(nrb, (dp1 - 1) * n, t_dim).sum(dim=0)
-    gsum = f[nrb * per_rb : nrb * (per_rb + t_dim)].view(nrb, t_dim)
-    return torch.cat([gsum.sum(dim=0).expand(n, -1), part])
+    return (f[: nrb * per_rb].view(nrb, per_rb),
+            f[nrb * per_rb : nrb * (per_rb + t_dim)].view(nrb, t_dim))
+
+
+def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim):
+    """Plain torch version of ``fused_bwd_partial_sum``: the same sums
+    over the [row blocks, ...] partials of a workspace on the card."""
+    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+    return torch.cat([gpart.sum(dim=0).expand(n, -1),
+                      part.sum(dim=0).view(-1, t_dim)])
+
+
+def fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim):
+    """Plain torch version of ``fused_bwd_partial_sum`` in the kernel's own
+    order (``fixed_order_sum_reference`` over both kinds of partials, with
+    the card's segment count): the kernel equals it bit for bit."""
+    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+    segments = partial_sum_segments(part.shape[0], part.shape[1])
+    return torch.cat([
+        fixed_order_sum_reference(gpart, segments).expand(n, -1),
+        fixed_order_sum_reference(part, segments).view(-1, t_dim),
+    ])
 
 
 def _launch_bwd(entry, x, w2, g, dp1, apply_tanh, extra, want_dx):
-    """A backward kernel and its fixed-order sum: (dx or None, dw)."""
-    dx, ws = _bwd_pass(entry, x, w2, g, dp1, apply_tanh, extra, want_dx)
-    b, n = x.shape
-    return dx, fused_bwd_partial_sum(ws, b, n, dp1, w2.shape[1], want_dx)
+    """A backward kernel and its fixed-order sum, in one library call:
+    (dx or None, dw)."""
+    dx, _, dw = _bwd_pass(entry, x, w2, g, dp1, apply_tanh, extra, want_dx,
+                          finish=True)
+    return dx, dw
 
 
 # -- degree-wise layer (K1 forward, K2 backward) --------------------------
@@ -524,8 +596,13 @@ def kan_train_step_fused_reference(
     return (total if loss == "sumsq" else loss_scale * total), dw.contiguous()
 
 
-def _launch_step(x, w2, dp1, y, loss, apply_tanh):
-    """K5 and the fixed-order dW pass: (loss, dw) on x's card."""
+def _step_pass(x, w2, dp1, y, loss, apply_tanh, finish: bool = False):
+    """K5 on x's card: (loss, the workspace of dW partials, dW or None).
+    With ``finish`` the same library call launches the fixed-order pass
+    too, into dW [dp1*in, T] f32.  The loss and dW are tensors of their
+    own: keeping them does not keep the workspace.  Counts
+    ``kan_train_step_fused.launches`` and, with ``finish``,
+    ``fused_bwd_partial_sum.launches``."""
     b, n, t_dim = _check_layer_args(x, w2, dp1)
     if loss == "mse":
         y = y.to(torch.float32).contiguous()
@@ -543,6 +620,8 @@ def _launch_step(x, w2, dp1, y, loss, apply_tanh):
     # K2's dW and colsum(g) partials, then one loss partial per row block
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     loss_out = torch.empty((), dtype=torch.float32, device=x.device)
+    dw = (torch.empty((dp1 * n, t_dim), dtype=torch.float32, device=x.device)
+          if finish else None)
     g_scale, loss_scale = _step_scales(b, t_dim, loss)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -551,11 +630,21 @@ def _launch_step(x, w2, dp1, y, loss, apply_tanh):
             y.data_ptr() if y is not None else None, loss_out.data_ptr(),
             ws.data_ptr(), ws_bytes, b, n, dp1, t_dim,
             int(x.dtype == torch.bfloat16), int(bool(apply_tanh)), g_scale,
-            loss_scale, stream,
+            loss_scale, dw.data_ptr() if finish else None, stream,
         )
     _raise_on_error(lib, err, "qkan_fused_step")
     _count(kan_train_step_fused, "launches")
-    return loss_out, fused_bwd_partial_sum(ws, b, n, dp1, t_dim, False)
+    if finish:
+        _count(fused_bwd_partial_sum, "launches")
+    return loss_out, ws, dw
+
+
+def _launch_step(x, w2, dp1, y, loss, apply_tanh):
+    """K5 and the fixed-order dW pass, in one library call: (loss, dw) on
+    x's card."""
+    loss_out, _, dw = _step_pass(x, w2, dp1, y, loss, apply_tanh,
+                                 finish=True)
+    return loss_out, dw
 
 
 def kan_train_step_fused(
@@ -579,8 +668,8 @@ def kan_train_step_fused(
     'default' are both FP32 products.  A CPU tensor runs
     ``kan_train_step_fused_reference``; a CUDA tensor launches the kernel
     ``qkan_fused_step`` (``csrc/fused_dw_bwd.cu``: counted on
-    ``kan_train_step_fused.launches``) and then the fixed-order dW pass
-    (counted on ``fused_bwd_partial_sum.launches``), or raises.
+    ``kan_train_step_fused.launches``) and the fixed-order dW pass (counted
+    on ``fused_bwd_partial_sum.launches``) in one library call, or raises.
 
     Any B >= 1 is taken: the kernel masks the rows past B, so nothing is
     padded and 'mse' is not biased.  ``tile_b`` is accepted for the JAX

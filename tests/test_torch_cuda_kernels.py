@@ -21,6 +21,12 @@ and at most 1 in 1000 elements may be.  Control: where dp1 > 1, the
 same x by more than the bar, so a kernel that skips the mode's rounding
 fails; the v1 forward must differ from the degree-wise 'high' forward on
 a bf16 x, since it rounds all of w2 to bf16.
+
+The dW pass (``csrc/partial_sum.cu``) sums in the order of
+``fixed_order_sum_reference`` with the card's segment count, every add an
+f32 rounding on both sides: it must equal that version bit for bit, and
+the one-call backward must give the bits of the backward followed by the
+pass alone.
 """
 
 import numpy as np
@@ -31,6 +37,7 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     _bwd_pass,
     _fused_bwd,
     _fused_dw_bwd,
+    fused_bwd_fixed_order_reference,
     fused_bwd_partial_sum,
     fused_bwd_partial_sum_reference,
     kan_layer_fused,
@@ -212,17 +219,45 @@ def test_cuda_backward_matches_cpu_plain_backward(cuda, v1, x_dtype):
         _assert_close(got, want, "high")
 
 
-@pytest.mark.parametrize("b,n,dp1,t_dim", SHAPES + [(4096, 784, 6, 10)])
+# the flagship's layer 0 at B = 4096 (26 row blocks) and 64 (2); SHAPES
+# hold one row block (B = 1) and dW strides (dp1-1)*in*T of 4403 and 1,
+# no multiple of 4
+@pytest.mark.parametrize("b,n,dp1,t_dim",
+                         SHAPES + [(4096, 784, 6, 10), (64, 784, 6, 10)])
 def test_partial_sum_kernel_matches_plain(cuda, b, n, dp1, t_dim):
     x, w2 = _inputs(b + n, b, n, dp1, t_dim, True, torch.float32, cuda)
     g = torch.randn((b, t_dim), device=cuda)
-    _, ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, dp1, True, (0,), True)
+    _, ws, _ = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, dp1, True, (0,), True)
     got = fused_bwd_partial_sum(ws, b, n, dp1, t_dim)
     want = fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim)
     torch.cuda.synchronize()
     _assert_close(got, want, "high")
-    # a fixed order: the same bits every time
+    # a fixed order: the same bits every time, those of the plain version
+    # in the kernel's order
     assert torch.equal(fused_bwd_partial_sum(ws, b, n, dp1, t_dim), got)
+    assert torch.equal(
+        fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim), got)
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim",
+                         SHAPES + [(4096, 784, 6, 10), (64, 784, 6, 10)])
+@pytest.mark.parametrize("v1", [False, True], ids=["dw", "v1"])
+@pytest.mark.parametrize("want_dx", [True, False], ids=["dx", "no_dx"])
+def test_one_call_backward_equals_backward_then_pass(cuda, b, n, dp1, t_dim,
+                                                    v1, want_dx):
+    entry, bwd = (("qkan_fused_bwd", _fused_bwd) if v1
+                  else ("qkan_fused_dw_bwd", _fused_dw_bwd))
+    extra = () if v1 else (0,)
+    x, w2 = _inputs(b * 3 + n, b, n, dp1, t_dim, True, torch.float32, cuda)
+    g = torch.randn((b, t_dim), device=cuda)
+    dx, dw = bwd(x, w2, g, dp1, True, "high", want_dx=want_dx)
+    dx2, ws, _ = _bwd_pass(entry, x, w2, g, dp1, True, extra, want_dx)
+    dw2 = fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx)
+    torch.cuda.synchronize()
+    assert torch.equal(dw, dw2)
+    assert (dx is None and dx2 is None) or torch.equal(dx, dx2)
+    # dW owns its memory: keeping it keeps no workspace
+    assert dw.untyped_storage().nbytes() == 4 * dw.numel()
 
 
 def test_launch_counters_count_kernel_launches(cuda):

@@ -14,7 +14,11 @@ recurrences at the same points on both).  out and dx of a bf16 x are the
 f32 sum rounded to bf16 once, so where the two sums straddle a rounding
 boundary an element may sit one bf16 step off: at most 1 in 1000.  The
 kernels sum in a fixed order with no float atomics, so two runs on the
-same inputs give the same bits.
+same inputs give the same bits.  The dM pass (``csrc/partial_sum.cu``)
+sums in the order of ``fixed_order_sum_reference`` with the card's segment
+count, every add an f32 rounding on both sides: it equals that version bit
+for bit, and the one-call backward gives the bits of the backward followed
+by the pass alone.
 """
 
 import numpy as np
@@ -22,6 +26,10 @@ import pytest
 import torch
 
 from qkan_implementation_tpu_torch.experimental import pallas_layer as pl
+from qkan_implementation_tpu_torch.ops.fused_layer import (
+    fixed_order_sum_reference,
+    partial_sum_segments,
+)
 from qkan_implementation_tpu_torch.experimental.pallas_layer import (
     m3_dm_partial_sum,
     m3_dm_partial_sum_reference,
@@ -113,9 +121,52 @@ def test_main_shapes_and_unclipped_x(cuda, b, n, k, dp1):
 
 def test_dm_pass_matches_plain(cuda):
     x, m3, g = _inputs(3, 20000, 16, 16, 8, torch.float32, cuda)
-    _, part = pl._bwd_pass(x, m3, g, False)
+    _, part, _ = pl._bwd_pass(x, m3, g, False)
     assert part.shape[0] > 1
-    _held(m3_dm_partial_sum(part), m3_dm_partial_sum_reference(part))
+    got = m3_dm_partial_sum(part)
+    _held(got, m3_dm_partial_sum_reference(part))
+    segments = partial_sum_segments(part.shape[0], got.numel())
+    assert torch.equal(got, fixed_order_sum_reference(part, segments))
+
+
+@pytest.mark.parametrize("nblk,per", [
+    (256, 2048),   # the headline's partials [256, 8, 16, 16]
+    (264, 2048),   # MAX_BLOCKS partials of 8 x 16 x 16
+    (16, 16384),   # N16 K128 at B 4096
+    (547, 1792),   # as many partials as the K5 headline workspace
+    (1, 2048),     # one block
+    (5, 1001),     # per no multiple of 4: scalar loads, a ragged unit
+    (33, 3),
+])
+def test_dm_pass_equals_fixed_order_reference(cuda, nblk, per):
+    rng = np.random.default_rng(nblk + per)
+    part = torch.from_numpy(
+        rng.normal(size=(nblk, per)).astype(np.float32)).to(cuda)
+    segments = partial_sum_segments(nblk, per)
+    assert 1 <= segments <= min(nblk, 32)
+    got = m3_dm_partial_sum(part)
+    again = m3_dm_partial_sum(part)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fixed_order_sum_reference(part, segments))
+    assert torch.equal(got, again)
+    _held(got, m3_dm_partial_sum_reference(part))
+
+
+@pytest.mark.parametrize("b,n,k,dp1", [
+    (262144, 16, 16, 8), (4096, 16, 128, 8), (37, 4, 3, 6), (1, 16, 16, 2),
+])
+@pytest.mark.parametrize("want_dx", [True, False], ids=["k13", "k14"])
+def test_one_call_backward_equals_backward_then_pass(cuda, b, n, k, dp1,
+                                                    want_dx):
+    x, m3, g = _inputs(b + k, b, n, k, dp1, torch.float32, cuda)
+    dx, dm = pl._launch_bwd(x, m3, g, want_dx)
+    dx2, part, _ = pl._bwd_pass(x, m3, g, want_dx)
+    dm2 = m3_dm_partial_sum(part)
+    torch.cuda.synchronize()
+    assert torch.equal(dm, dm2)
+    assert (dx is None and dx2 is None) or torch.equal(dx, dx2)
+    # dM owns its memory: keeping it keeps no partials
+    assert dm.untyped_storage().nbytes() == 4 * dm.numel()
 
 
 def _counts():

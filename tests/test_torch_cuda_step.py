@@ -19,6 +19,8 @@ import pytest
 import torch
 
 from qkan_implementation_tpu_torch.ops.fused_layer import (
+    _step_pass,
+    fused_bwd_fixed_order_reference,
     fused_bwd_partial_sum,
     kan_train_step_fused,
     kan_train_step_fused_reference,
@@ -89,6 +91,46 @@ def test_step_kernel_main_shapes_and_same_bits(cuda, b, n, dp1, t_dim, tanh):
         _assert_step_close(got, kan_train_step_fused_reference(*args))
         again = kan_train_step_fused(*args)
         assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim,tanh", [
+    (262144, 16, 8, 16, False),  # the headline step: 547 row blocks
+    (4096, 784, 6, 10, True),    # layer 0: 26 row blocks
+    (37, 10, 6, 10, True),       # one row block; dW stride 500
+    (1000, 37, 8, 17, True),     # dW stride 4403, no multiple of 4
+    (300, 16, 1, 10, True),      # dp1 = 1: colsum(g) alone
+])
+def test_one_call_step_equals_step_then_pass(cuda, b, n, dp1, t_dim, tanh):
+    """The step's one library call gives the bits of K5 followed by the
+    dW pass alone, which equal the plain sum in the kernel's order."""
+    x, w2, y = _inputs(11, b, n, dp1, t_dim, tanh, torch.float32, cuda)
+    loss, dw = kan_train_step_fused(x, w2, dp1, y=y, loss="mse",
+                                    apply_tanh=tanh)
+    loss2, ws, _ = _step_pass(x, w2, dp1, y, "mse", tanh)
+    dw2 = fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=False)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(dw, dw2)
+    assert torch.equal(fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim),
+                       dw)
+    # the outputs own their memory: keeping them keeps no workspace
+    assert loss.untyped_storage().nbytes() == 4
+    assert dw.untyped_storage().nbytes() == 4 * dw.numel()
+
+
+def test_kept_losses_and_grads_do_not_keep_the_workspace(cuda):
+    """A loop that keeps each step's loss and dW on the card grows by those
+    alone: the headline step's workspace (547 row blocks, ≈ 3.9 MB) is
+    freed after each call."""
+    x, w2, y = _inputs(5, 262144, 16, 8, 16, False, torch.float32, cuda)
+    kan_train_step_fused(x, w2, 8, y=y, loss="mse")  # the library is built
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    kept = [kan_train_step_fused(x, w2, 8, y=y, loss="mse") for _ in range(4)]
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated(cuda) - before
+    # the caching allocator rounds each block up to 512 bytes
+    per_step = 512 + -(-4 * kept[0][1].numel() // 512) * 512
+    assert grown <= len(kept) * per_step, (grown, per_step)
 
 
 def test_step_counts_one_launch_a_call(cuda):

@@ -278,8 +278,27 @@ def test_layout_restore_and_dry_run(mesh):
 # -- the sharded quantum layer -------------------------------------------------------
 
 
+@pytest.fixture
+def jax_diag_template_as_found():
+    """The JAX package keeps its packed-extraction circuits process-wide
+    (``_diag_circuit_template``), each with a cache of sharded executors,
+    and ``test_quantum_mode.py`` counts the entries of the 64-entry one:
+    leave that cache as this test found it, whatever runs next in the
+    process."""
+    circ = jq._diag_circuit_template(6)[0]
+    found = getattr(circ, "_sharded_exec_cache", None)
+    saved = None if found is None else dict(found)
+    yield
+    if saved is None:
+        vars(circ).pop("_sharded_exec_cache", None)
+    else:
+        circ._sharded_exec_cache.clear()
+        circ._sharded_exec_cache.update(saved)
+
+
 @pytest.mark.parametrize("impl", ["rdma", "collective"])
-def test_quantum_layer_sharded_matches_jax(jmesh, mesh, impl):
+def test_quantum_layer_sharded_matches_jax(jmesh, mesh, impl,
+                                           jax_diag_template_as_found):
     """TestShardedQuantumMode's N = K = 8 layer, forward and the gradient
     of sum(out^2) in x and w.  There JAX routes 'rdma' through its
     collective path (its block of 1024 is under two tiles); the port's
