@@ -90,18 +90,23 @@ Phases, each reported on its own lines:
    shape); the bound is the bytes over 3.35 TB/s (K6 12, K8 10, K9 12,
    K10 8 bytes an amplitude).  K9's one PyTorch call is ``torch.mul``,
    K10's is ``torch.matmul`` of the 2x2 Hadamard with the
-   [outer, 2, inner] view; no single PyTorch call computes a multiplexed
-   rotation, so ``library_ms`` is null for K6/K7 and K8.  Then one call of each quantum path (the layer forward at
-   B = 256, a train step at B = 8, the 27-qubit block encoding, the
-   21-qubit gate-by-gate simulation) under ``torch.profiler``: device
-   busy share and time by kernel.
+   [outer, 2, inner] view, each called in turns with the kernel: event
+   ms, host µs a call (from the call to its return, on an idle card) and
+   device µs beside the kernel's; no single PyTorch call computes a
+   multiplexed rotation, so ``library_ms`` is null for K6/K7 and K8.
+   Then one call of each quantum path (the layer forward at B = 256, a
+   train step at B = 8, the 27-qubit block encoding, the 21-qubit
+   gate-by-gate simulation) under ``torch.profiler``: device busy share
+   and time by kernel.
 12. the fused single-layer train step (K5, ``kan_train_step_fused``):
    a. K5 against its plain version on the card, twice on the same inputs
       (the same bits both times): the headline shape (x [262144, 16],
-      dp1 8, T 16, no tanh, 'sumsq'), the flagship layer 0 (B 64 and
-      4096, in 784, dp1 6, T 10, tanh, 'mse' and 'sumsq'), a ragged
-      narrow case (B 37, in 10), a bf16 x at layer 0 and dp1 = 1.  dW
-      within the BARS, the loss within rtol 1e-4;
+      dp1 8, T 16, no tanh, 'sumsq'; f32 and bf16 x: the tensor-core
+      kernel), the flagship layer 0 (B 1, 64 and 4096, in 784, dp1 6, T
+      10, tanh, 'mse' and 'sumsq': the CUDA-core kernel, by the rule of
+      ``fused_step_tensor_cores``), a ragged narrow case (B 37, in 10:
+      tensor cores), a bf16 x at layer 0 and dp1 = 1.  dW within the
+      BARS, the loss within rtol 1e-4;
    b. the headline QKAN-layer step at full width (N = K = 16, degree 7,
       B = 262144): the weights [8, 256] folded by ``weights_to_m3`` into
       w2 [128, 16], whose output must match ``qkan_layer_forward_batched``
@@ -111,7 +116,9 @@ Phases, each reported on its own lines:
       reverse (benchmarks/fused_retune_probe.py's chain), the final w2
       within 1e-4 max|w2| of the same steps with the float64 dW, and K5
       and the dW pass launched 20 times each;
-   c. K5's event ms, device µs and plain ms beside its bound, and one step
+   c. K5's event ms, device µs and plain ms beside its bound on the units
+      it uses (``step_bound``: 3xTF32 on the tensor cores, or FP32) and
+      the FP32 bound, and one step
       done by the K3 + K4 pair (``kan_layer_fused`` and its backward,
       ``sum(out**2)`` by torch) and one done as torch ops (autograd
       through ``qkan_layer_forward_batched``), at the headline shape and
@@ -119,8 +126,8 @@ Phases, each reported on its own lines:
       autograd through ``kan_layer_fused_reference``); and the device
       time of each of the three by kernel, from ``torch.profiler`` over
       10 calls, K5's split into the step kernel, the dW pass and the loss
-      sum; the dW pass over the headline step's workspace (547 partials)
-      as in phase 6.
+      sum; the dW pass over the headline step's workspace (256 partials,
+      K5's own layout) as in phase 6.
 13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
    forward, K13 backward with dx, K14 weight-only backward, the dM pass):
    a. each kernel against its plain version on the card, twice on the
@@ -183,7 +190,9 @@ failed check raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
-FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W).
+FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W); K5 on
+the tensor cores counts its flops as three TF32 passes over 495 TFLOP/s,
+with the FP32 bound beside it.
 Operations count the contractions' multiply-adds, 2 per FMA, and one per
 add of the partial sums; the elementwise recurrences are left out (under
 10% of the FMAs at dp1 = 6).  No single PyTorch call computes tanh ->
@@ -290,6 +299,7 @@ TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ROWS = 64, 2, 4096
 SHORT_ROWS = 2 * TRAIN_BATCH  # phase 7b: 2 epochs of 2 steps
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12  # the tensor cores, dense
 
 # (name in the kernels line, counter owner, counter attribute)
 COUNTERS = [
@@ -719,6 +729,21 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def step_bound(bytes_moved: float, flops: float, n: int, dp1: int,
+               t_dim: int) -> tuple:
+    """(least ms, what bounds it, the units, the FP32 CUDA-core bound ms)
+    of a train step on the units its kernel uses: on the tensor-core path
+    (``fused_step_tensor_cores``) the flops as three TF32 passes (3xTF32)
+    over 495 TFLOP/s; else, on the CUDA-core kernel, the FP32 rate."""
+    fp32_ms, fp32_by = bound(bytes_moved, flops)
+    if not fl.fused_step_tensor_cores(n, dp1, t_dim):
+        return fp32_ms, fp32_by, "FP32 CUDA cores", fp32_ms
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 3.0 * flops / TF32_FLOP_PER_S * 1e3
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return ms, by, "tensor cores, 3xTF32", fp32_ms
+
+
 def kernel_cases(rng, device, b: int, n: int) -> dict:
     """Every kernel at one flagship shape, 'high', f32 x, tanh on: name ->
     (kernel call, plain call, one PyTorch call or None, (bound ms, what
@@ -822,18 +847,20 @@ def pass_cases(device, which: str) -> dict:
                                  .astype(np.float32)).to(device)
             ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g, dp1, tanh, (0,),
                            True)[1]
-        else:  # K5's own workspace: K2's layout with want_dx = 0
+        else:  # K5's own workspace, in its own layout (fused_step_layout)
             (x, _), w = headline_inputs(device)
             w2 = weights_to_m3(w, HN, HK).reshape(-1, HK).contiguous()
             _, ws, _ = _step_pass(x, w2, dp1, None, "sumsq", tanh)
-        want_dx = which == "dw"
-        part, _ = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+        kw = {"step": which == "k5"}
+        part, _ = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim, **kw)
         nblk, per = part.shape
         args = (ws, b, n, dp1, t_dim)
         cases[tag] = (
-            lambda args=args, w=want_dx: fused_bwd_partial_sum(*args, w),
-            lambda args=args: fused_bwd_fixed_order_reference(*args),
-            lambda args=args: fused_bwd_partial_sum_reference(*args),
+            lambda args=args, kw=kw: fused_bwd_partial_sum(*args, **kw),
+            lambda args=args, kw=kw: fused_bwd_fixed_order_reference(*args,
+                                                                     **kw),
+            lambda args=args, kw=kw: fused_bwd_partial_sum_reference(*args,
+                                                                     **kw),
             lambda part=part: torch.sum(part, dim=0),
             bound(4.0 * (nblk * (per + t_dim) + dp1 * n * t_dim),
                   float(nblk * (per + t_dim))),
@@ -1529,12 +1556,20 @@ def statevector_cases(rng, device, q: int) -> dict:
     }
 
 
+def _sv_device_us(fn, key: str):
+    """Device µs a launch of the kernels of ``fn`` whose name holds
+    ``key`` ('' for all), the largest, from ``device_per_call``."""
+    us = [u for k, u in device_per_call(fn, calls=20) if key in k]
+    return max(us) if us else None
+
+
 def time_statevector(device, card: str) -> dict:
     """Phase 11: each kernel held to its plain version, then event ms,
-    device µs, plain ms and bound per kernel at 21 qubits (L2) and 27
-    qubits (HBM); returns the table and name -> worst |kernel - plain|."""
-    from torch.profiler import ProfilerActivity, profile
-
+    host µs a call, device µs, plain ms and bound per kernel at 21 qubits
+    (L2) and 27 qubits (HBM), each beside its one PyTorch call's event ms,
+    host µs and device µs where there is one (K9: ``torch.mul``, K10:
+    ``torch.matmul``), called in turns; returns the table and name ->
+    worst |kernel - plain|."""
     rng = np.random.default_rng(SEED + 11)
     table, worst = {}, {}
     for q in (21, 27):
@@ -1553,27 +1588,31 @@ def time_statevector(device, card: str) -> dict:
                         f"{name}'s library call at 2^{q}: {lib_err} > {bar}")
             worst[name] = max(worst.get(name, 0.0), err)
             del got, want
-            k_ms = median_ms(kern)
             p_ms = median_ms(plain)
-            l_ms = median_ms(lib) if lib is not None else None
-            kern()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(20):
-                    kern()
-                torch.cuda.synchronize()
-            us = [u / c for k, u, c in device_events(prof)
-                  if SV_KERNELS[name][2] in k]
-            dev_us = max(us) if us else None
+            # the kernel and its one PyTorch call in turns: event ms, and
+            # host µs a call from the call to its return on an idle card
+            if lib is not None:
+                k_ms, l_ms = paired_ms(kern, lib, reps=50)
+                h_us, lh_us = paired_host_us(kern, lib, reps=50)
+            else:
+                k_ms, l_ms = median_ms(kern), None
+                h_us, lh_us = paired_host_us(kern, kern, reps=25)[0], None
+            dev_us = _sv_device_us(kern, SV_KERNELS[name][2])
+            l_dev = _sv_device_us(lib, "") if lib is not None else None
             table[(name, q)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                     bound_ms=b_ms, bound_by=b_by,
-                                    device_us=dev_us)
+                                    device_us=dev_us, host_us=h_us,
+                                    library_host_us=lh_us,
+                                    library_device_us=l_dev)
+            na = "not measured"
             log("time", kernel=name, state=f"2^{q} f32",
                 memory="L2" if q == 21 else "HBM", kernel_ms=f"{k_ms:.4f}",
-                device_us="not measured" if dev_us is None else f"{dev_us:.3f}",
-                plain_ms=f"{p_ms:.4f}",
+                device_us=na if dev_us is None else f"{dev_us:.3f}",
+                host_us=f"{h_us:.2f}", plain_ms=f"{p_ms:.4f}",
                 library_ms="null" if l_ms is None else f"{l_ms:.4f}",
+                library_device_us=("null" if lib is None else na
+                                   if l_dev is None else f"{l_dev:.3f}"),
+                library_host_us="null" if lh_us is None else f"{lh_us:.2f}",
                 bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
                 err_over_bar=f"{err / bar:.3f}", card=f"'{card}'")
         del cases
@@ -1655,7 +1694,9 @@ def step_cases(device) -> list:
     rng = np.random.default_rng(SEED + 13)
     (hx, _), hw = headline_inputs(device)
     h_w2 = weights_to_m3(hw, HN, HK).reshape(-1, HK).contiguous()
-    cases = [("headline", (hx, h_w2, HDEG + 1, None, "sumsq", False))]
+    cases = [("headline", (hx, h_w2, HDEG + 1, None, "sumsq", False)),
+             ("headline_bf16_x", (hx.to(torch.bfloat16), h_w2, HDEG + 1,
+                                  None, "sumsq", False))]
 
     def add(name, b, n, dp1, loss, x_dtype=torch.float32):
         x = torch.from_numpy(rng.uniform(-2, 2, (b, n)).astype(np.float32))
@@ -1666,7 +1707,7 @@ def step_cases(device) -> list:
                              dp1, y.to(device) if loss == "mse" else None,
                              loss, True)))
 
-    for b in (64, 4096):
+    for b in (1, 64, 4096):
         for loss in ("mse", "sumsq"):
             add(f"layer0_B{b}_{loss}", b, 784, DP1, loss)
     for loss in ("mse", "sumsq"):
@@ -1685,9 +1726,11 @@ def check_step_kernel(device) -> float:
         again = kan_train_step_fused(*args)
         want_loss, want_dw = kan_train_step_fused_reference(*args)
         torch.cuda.synchronize()
-        x = args[0]
+        x, w2, dp1 = args[:3]
         where = dict(case=name, x=f"[{x.shape[0]},{x.shape[1]}]",
-                     dtype=str(x.dtype).split(".")[-1])
+                     dtype=str(x.dtype).split(".")[-1],
+                     tensor_cores=fl.fused_step_tensor_cores(
+                         x.shape[1], dp1, w2.shape[1]))
         err, _ = held("fused_step.dw", dw, want_dw, "high", **where)
         if x.dtype == torch.float32:
             worst = max(worst, err)
@@ -1774,7 +1817,7 @@ def run_headline(device, paths: dict) -> dict:
 
 def step_timing_cases(device) -> dict:
     """Phase 12c: per shape, (K5 call, plain call, the K3 + K4 pair's
-    step, the torch-ops step, (bound ms, what bounds it))."""
+    step, the torch-ops step, ``step_bound``'s four)."""
     cases = {}
     pool, w = headline_inputs(device)
     x = pool[0]
@@ -1795,8 +1838,8 @@ def step_timing_cases(device) -> dict:
         lambda: kan_train_step_fused(x, w2, dp1, apply_tanh=False),
         lambda: kan_train_step_fused_reference(x, w2, dp1, apply_tanh=False),
         pair_headline, torch_headline,
-        bound(4.0 * (b * n + 2 * dp1 * n * t_dim + 1),
-              2 * 2.0 * b * n * (dp1 - 1) * t_dim),
+        step_bound(4.0 * (b * n + 2 * dp1 * n * t_dim + 1),
+                   2 * 2.0 * b * n * (dp1 - 1) * t_dim, n, dp1, t_dim),
     )
 
     rng = np.random.default_rng(SEED + 14)
@@ -1817,8 +1860,8 @@ def step_timing_cases(device) -> dict:
         lambda: kan_train_step_fused(xf, w2f, DP1, y=y, loss="mse"),
         lambda: kan_train_step_fused_reference(xf, w2f, DP1, y=y, loss="mse"),
         pair_layer0, torch_layer0,
-        bound(4.0 * (b * n + b * T + 2 * DP1 * n * T + 1),
-              2 * 2.0 * b * n * (DP1 - 1) * T),
+        step_bound(4.0 * (b * n + b * T + 2 * DP1 * n * T + 1),
+                   2 * 2.0 * b * n * (DP1 - 1) * T, n, DP1, T),
     )
     return cases
 
@@ -1851,7 +1894,7 @@ def time_step(device, card: str) -> dict:
     and one step of the K3 + K4 pair and of torch ops, each with its
     device time by kernel, per shape."""
     table = {}
-    for shape, (kern, plain, pair, ops, (b_ms, b_by)) in \
+    for shape, (kern, plain, pair, ops, (b_ms, b_by, units, fp32_ms)) in \
             step_timing_cases(device).items():
         times = {k: median_ms(fn, reps=30) for k, fn in (
             ("ms", kern), ("plain_ms", plain), ("pair_ms", pair),
@@ -1879,7 +1922,8 @@ def time_step(device, card: str) -> dict:
                     k: "not measured" if v is None else f"{v:.3f}"
                     for k, v in split.items()})
         table[shape] = dict(
-            times, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            times, bound_ms=b_ms, bound_by=b_by, bound_units=units,
+            bound_fp32_ms=fp32_ms, library_ms=None,
             device_us=split["step_kernel_us"], **split,
             device_us_call=device_us["fused_step"],
             pair_device_us=device_us["pair_k3_k4"],
@@ -1891,7 +1935,9 @@ def time_step(device, card: str) -> dict:
             plain_ms=f"{times['plain_ms']:.4f}",
             pair_k3_k4_ms=f"{times['pair_ms']:.4f}",
             torch_ops_ms=f"{times['torch_ops_ms']:.4f}",
-            bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by, card=f"'{card}'")
+            bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
+            bound_units=f"'{units}'", bound_fp32_us=f"{fp32_ms * 1e3:.3f}",
+            card=f"'{card}'")
     log("time", note="library_ms null for fused_step: no single PyTorch "
         "call computes the train step")
     return table
@@ -2214,7 +2260,7 @@ def time_backwards(device, card: str) -> dict:
                                      finish=True)[2],
                   lambda: fused_bwd_partial_sum(
                       _step_pass(x, w2, dp1, None, "sumsq", False)[1], HB, HN,
-                      dp1, HK, False)),
+                      dp1, HK, step=True)),
     }
     table = {}
     for name, (one, two) in calls.items():
@@ -2789,9 +2835,13 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "device_us": t["device_us"],
+            "host_us": t["host_us"],
+            "library_host_us": t["library_host_us"],
+            "library_device_us": t["library_device_us"],
             "at": "psi[2^27] f32 (HBM)",
             "at_21_qubits_l2": {k: t21[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "device_us")},
+                "ms", "plain_ms", "bound_ms", "library_ms", "device_us",
+                "host_us", "library_host_us", "library_device_us")},
         })
         if name == "ucry":
             kernels[-1]["at_launch_shapes"] = ucry_table
@@ -2808,8 +2858,9 @@ def main() -> int:
                              if c["fused_step"]},
         "max_abs_err": errs["fused_step"],
         **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                             "library_ms", "device_us", "device_us_call",
-                             "pair_ms", "pair_device_us", "torch_ops_ms",
+                             "bound_units", "bound_fp32_ms", "library_ms",
+                             "device_us", "device_us_call", "pair_ms",
+                             "pair_device_us", "torch_ops_ms",
                              "torch_ops_device_us")},
         "bound_us": t["bound_ms"] * 1e3,
         "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, T {HK}, no tanh, 'sumsq', f32",

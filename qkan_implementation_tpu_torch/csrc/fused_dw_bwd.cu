@@ -82,10 +82,11 @@ struct Layout {
   size_t dt_floats;    // dt carried across degree chunks [B][in]
 };
 
-Layout layout(int B, int in, int dp1, int T, int want_dx) {
+Layout layout(int B, int in, int dp1, int T, int want_dx,
+              size_t budget = PARTIAL_BUDGET) {
   Layout L;
   const size_t per_rb = (size_t)(dp1 - 1) * in * T * sizeof(float);
-  size_t max_nrb = per_rb ? PARTIAL_BUDGET / per_rb : (size_t)B;
+  size_t max_nrb = per_rb ? budget / per_rb : (size_t)B;
   if (max_nrb < 1) max_nrb = 1;
   size_t rows = ((size_t)B + max_nrb - 1) / max_nrb;
   rows = (rows + GROWS - 1) / GROWS * GROWS;
@@ -267,6 +268,12 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
 
 // -- the fused single-layer train step (entry qkan_fused_step) ---------------
 //
+// Two kernels serve it, chosen by the shapes alone (tc_shape, below):
+// fused_step_kernel_tc on the tensor cores wherever a block's registers
+// hold all of dW (the headline step and narrow layers), and this one,
+// the CUDA-core one, at the wide layers (the flagship's in = 784) and
+// dp1 = 1.
+//
 // Replaces _step_kernel of qkan_implementation_tpu/ops/fused_layer.py (the
 // kernel of kan_train_step_fused).  With t = tanh(x) (or raw x) and w2
 // degree-major:
@@ -290,8 +297,9 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
 // K3 + K4 pair, which builds the basis twice and writes out and reads g).
 //
 // Schedule.  A block owns `rows` batch rows, from K2's layout() with
-// want_dx = 0, so the workspace is K2's and the same fixed-order pass
-// turns it into dW unchanged.  A block must own whole rows: g[r, :] needs
+// want_dx = 0 under K5's own partial budget (step_layout), so the
+// workspace has K2's form and the same fixed-order pass turns it into dW
+// unchanged.  A block must own whole rows: g[r, :] needs
 // out[r, :], which needs every feature, so features are not split across
 // blocks.  The rows go in super-tiles of up to 8192 / TP rows, whose g
 // sits in shared memory:
@@ -577,6 +585,594 @@ fused_step_loss_kernel(const float* __restrict__ lpart, int nrb,
   if (threadIdx.x == 0) *loss = loss_scale * s[0];
 }
 
+// -- K5 on the tensor cores: the step kernel of narrow layers ----------------
+//
+// The CUDA-core kernel above runs both contractions on the FP32 cores, one
+// shared-memory float4 a 4 FMAs, builds the basis twice (reloading x for
+// step 3) and keeps K2's layout: 547 row blocks of 480 rows at the
+// headline, 3 waves, 235 us against a 28 us FP32 bound.  This kernel
+// (fused_step_kernel_tc) takes every shape whose whole dW fits a block's
+// registers (the rule is tc_shape below; the others keep the kernel
+// above, and the rule and each path are stated in PERF.md):
+//
+//   - a persistent grid: at most TC_GRID row blocks, a function of the
+//     shapes alone (never of the card's SM count, so every card gives the
+//     same bits), each walking its rows in 64-row tiles; its dW_d stays in
+//     registers across the tiles and is written once, at the end;
+//   - x tiles arrive by cp.async into a two-stage ring: the next tile
+//     loads while this one computes (16-byte copies, zero-filled past B;
+//     an x off 16 bytes is copied by plain loads instead);
+//   - the basis T_1..T_D of a tile is built once, in x's dtype, into
+//     shared memory [64][S] (column k = (d-1)*in + i; the row of w2 that
+//     multiplies it is in + k), and feeds both contractions:
+//       out[64 x T] = basis @ W   (warp: a 16-row m-tile, every n-tile,
+//                                  half the k-steps; the halves meet in
+//                                  shared memory in a fixed order)
+//       dW[K x T]  += basis^T @ g (warp: m-tiles w, w+8, .. of K)
+//   - both on the tensor cores with mma.sync.m16n8k8 TF32 at FP32-class
+//     accuracy, 3xTF32: a = a_hi + a_lo (split_tf32), and a_lo*b_hi +
+//     a_hi*b_lo + a_hi*b_hi summed in FP32 (the counterpart of the TPU
+//     kernel's bf16x3 _dot_x3); the three passes go to separate
+//     accumulators where registers allow, for shorter chains of dependent
+//     mma.  A bf16 x needs no split where the operand is the basis or the
+//     bf16-rounded w2: both are exact in TF32, so the forward is one pass
+//     and dW two (g stays f32);
+//   - W and g sit in shared memory in mma's B-fragment order, one 8-byte
+//     load a lane.  The basis, W and g are kept as f32 and split into
+//     {hi, lo} in registers as they are loaded (two ALU ops a value): half
+//     the shared-memory bytes of keeping the pairs;
+//   - out, err, g and the loss stay on chip: err^2 and colsum(g) go to
+//     per-thread sums added in a fixed order at the end.
+//
+// The basis is swizzled (column k of row r at k ^ swz(r)) so that both
+// the forward's A fragments (8 rows x 4 columns) and dW's transposed ones
+// (4 rows x 8 columns) fall on distinct banks.  Rows past B read a
+// zero-filled x and get g = 0 and err = 0.  Bounds at the headline: 1.88
+// GFLOP as 3 TF32 passes on the tensor cores (495 TFLOP/s) is 11.4 us,
+// x's 16.8 MB 5.0 us, the same work on the FP32 CUDA cores 28.0 us.  On
+// an H100 80GB HBM3 at 700 W the kernel takes about 82 us there, the
+// CUDA-core kernel 235 us (tools/step_diag_vs_old.py, which also reads
+// the debug build's phase split: about a quarter each for the basis and
+// dW, a third for the forward and g).  mma.sync, shared-memory bytes and
+// the four barriers a tile set that pace; wgmma on TMA-fed tiles is the
+// next step.
+
+#ifndef QKAN_STEP_TC
+#define QKAN_STEP_TC 1  // 0: every shape takes the CUDA-core kernel (tools/)
+#endif
+
+constexpr int TC_ROWS = 64;       // rows of a tile
+constexpr int TC_THREADS = 256;   // 8 warps
+constexpr int TC_GRID = 264;      // row blocks at most (2 x 132, a constant)
+constexpr int TC_ACC = 8;         // (m-tile, n-tile) dW pairs a warp holds
+constexpr size_t TC_SMEM_MAX = 232448;  // a block's shared memory on sm_90
+
+struct TcShape {
+  bool ok;       // the shape takes fused_step_kernel_tc
+  int nt;        // n8-tiles of T: 1, 2, 4 or 8
+  int mpw;       // dW m16-tiles a warp: 1, 2, 4 or 8, mpw * nt <= TC_ACC
+  int kp;        // K = in * (dp1 - 1) rounded up to 16
+  int s;         // basis row stride, K rounded up to 32
+  int xstage;    // bytes of one x stage (4 bytes an element, any dtype)
+  size_t smem;   // dynamic shared memory bytes
+};
+
+TcShape tc_shape(int in, int dp1, int T) {
+  TcShape sh{};
+  const int n8 = (T + 7) / 8;
+  sh.nt = n8 <= 1 ? 1 : n8 <= 2 ? 2 : n8 <= 4 ? 4 : 8;
+  const int tn = 8 * sh.nt;
+  const long long k = (long long)in * (dp1 - 1);
+  sh.kp = (int)((k + 15) / 16 * 16);
+  sh.s = (int)((k + 31) / 32 * 32);
+  const int need = (sh.kp / 16 + 7) / 8;  // m16-tiles of K over 8 warps
+  sh.mpw = need <= 1 ? 1 : need <= 2 ? 2 : need <= 4 ? 4 : 8;
+  sh.xstage = (int)(((long long)TC_ROWS * in * 4 + 15) / 16 * 16);
+  // basis [64][s]; W and g fragments [kp or 64][8 nt]; colsum(W_0), the
+  // colsum(g) and err^2 sums, the odd k-half's out; two x stages
+  sh.smem = 4 * ((size_t)TC_ROWS * sh.s + (size_t)sh.kp * tn +
+                 (size_t)TC_ROWS * tn + tn + 32 * tn + TC_THREADS +
+                 64 * tn) +
+            2 * (size_t)sh.xstage;
+  sh.ok = QKAN_STEP_TC && dp1 >= 2 && k <= 1024 && sh.mpw * sh.nt <= TC_ACC &&
+          sh.smem <= TC_SMEM_MAX;
+  return sh;
+}
+
+// K5's layout: on the tensor-core path up to TC_GRID row blocks of whole
+// 64-row tiles (fewer where the dW partials would pass the 4 MB budget);
+// else K2's layout with want_dx = 0 under a budget of STEP_WIDE_BUDGET,
+// as the CUDA-core kernel takes it: at the flagship's layer 0 (156.8 KB
+// of dW a block) 4 MB left 26 row blocks for 132 SMs, 32 MB gives 128.
+// With QKAN_STEP_TC = 0 the step is as it was: K2's layout, 4 MB.
+constexpr size_t STEP_WIDE_BUDGET = size_t(32) << 20;
+
+Layout step_layout(int B, int in, int dp1, int T) {
+  if (!tc_shape(in, dp1, T).ok) {
+    return layout(B, in, dp1, T, 0,
+                  QKAN_STEP_TC ? STEP_WIDE_BUDGET : PARTIAL_BUDGET);
+  }
+  Layout L;
+  const long long tiles = ((long long)B + TC_ROWS - 1) / TC_ROWS;
+  const size_t per_rb = (size_t)(dp1 - 1) * in * T * sizeof(float);
+  long long nrb = (long long)(PARTIAL_BUDGET / per_rb);
+  if (nrb > TC_GRID) nrb = TC_GRID;
+  if (nrb > tiles) nrb = tiles;
+  if (nrb < 1) nrb = 1;
+  const long long rows = (tiles + nrb - 1) / nrb * TC_ROWS;
+  L.rows = (int)rows;
+  L.nrb = (int)(((long long)B + rows - 1) / rows);
+  L.part_floats = (size_t)L.nrb * (dp1 - 1) * in * T;
+  L.gpart_floats = (size_t)L.nrb * T;
+  L.dt_floats = 0;
+  return L;
+}
+
+// v = hi + lo exactly: hi is v with its 13 low mantissa bits cleared (a
+// TF32 value), lo = v - hi, exact in FP32.  The tensor core reads lo as
+// TF32 too, dropping its low bits: |error| <= 2^-20 |v| a product with
+// the lo*lo pass left out, against 2^-24 for an FP32 product.
+__device__ __forceinline__ float2 split_tf32(float v) {
+  const float hi = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+  return make_float2(hi, v - hi);
+}
+
+// the {b0 hi, b1 hi, b0 lo, b1 lo} of a B fragment {b0, b1}; EXACT: its
+// values are TF32 already (lo = 0, never read)
+template <bool EXACT>
+__device__ __forceinline__ float4 b_frag(float2 v) {
+  if (EXACT) return make_float4(v.x, v.y, 0.f, 0.f);
+  const float2 p = split_tf32(v.x), q = split_tf32(v.y);
+  return make_float4(p.x, q.x, p.y, q.y);
+}
+
+// c += a @ b on one 16x8x8 TF32 tile, FP32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0,
+                                         unsigned a1, unsigned a2,
+                                         unsigned a3, unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the three passes of 3xTF32, a = {hi, lo} fragments, b = {b0 hi, b1 hi,
+// b0 lo, b1 lo}: big += a_hi b_hi, s1 += a_lo b_hi, s2 += a_hi b_lo.  The
+// accumulators may be one array or three: three make three shorter chains
+// of dependent mma.  A pass whose operand is exact in TF32 (EXACT_A /
+// EXACT_B: its lo is 0) is skipped.
+template <bool EXACT_A, bool EXACT_B>
+__device__ __forceinline__ void mma_3x(float (&big)[4], float (&s1)[4],
+                                       float (&s2)[4], const float2 (&a)[4],
+                                       float4 b) {
+#define QKAN_U(v) __float_as_uint(v)
+  if (!EXACT_A) {
+    mma_tf32(s1, QKAN_U(a[0].y), QKAN_U(a[1].y), QKAN_U(a[2].y),
+             QKAN_U(a[3].y), QKAN_U(b.x), QKAN_U(b.y));
+  }
+  if (!EXACT_B) {
+    mma_tf32(s2, QKAN_U(a[0].x), QKAN_U(a[1].x), QKAN_U(a[2].x),
+             QKAN_U(a[3].x), QKAN_U(b.z), QKAN_U(b.w));
+  }
+  mma_tf32(big, QKAN_U(a[0].x), QKAN_U(a[1].x), QKAN_U(a[2].x),
+           QKAN_U(a[3].x), QKAN_U(b.x), QKAN_U(b.y));
+#undef QKAN_U
+}
+
+// accumulator sets a thread keeps for `pairs` (m16, n8) tiles within 32
+// registers: 3 (big, s1, s2), 2 (s1 takes both small passes) or 1
+__host__ __device__ constexpr int acc_sets(int pairs) {
+  return pairs <= 2 ? 3 : pairs <= 4 ? 2 : 1;
+}
+
+// big + s1 + s2 of one accumulator element, as acc_sets keeps them
+template <int SETS>
+__device__ __forceinline__ float acc_total(float big, float s1, float s2) {
+  return SETS == 3 ? big + (s1 + s2) : SETS == 2 ? big + s1 : big;
+}
+
+// column k of basis row r lives at k ^ swz(r): the forward's A fragments
+// (8 rows x 4 columns) and dW's transposed ones (4 rows x 8 columns) both
+// fall on 32 distinct banks (row stride a multiple of 32)
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+
+// the float of B-fragment element (k, n) in a [k-steps][n-tiles][32 lanes]
+// float2 array {b0, b1}: one 8-byte load a lane
+__device__ __forceinline__ int frag_slot(int k, int n, int nt) {
+  const int lane = (n & 7) * 4 + (k & 3);
+  return ((((k >> 3) * nt + (n >> 3)) * 32 + lane) << 1) + ((k >> 2) & 1);
+}
+
+// the {hi, lo} pairs of four basis values (EXACT: TF32 already)
+template <bool EXACT>
+__device__ __forceinline__ void a_frag(float2 (&a)[4], float v0, float v1,
+                                       float v2, float v3) {
+  const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    a[q] = EXACT ? make_float2(v[q], 0.f) : split_tf32(v[q]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the x rows [r0, r0 + 64) into a stage, zeros past r_end
+template <typename XT>
+__device__ __forceinline__ void load_x_tile(const XT* __restrict__ x,
+                                            unsigned char* stage, int r0,
+                                            int r_end, int in, int xvec) {
+  const int nrows = max(0, min(TC_ROWS, r_end - r0));
+  const long long valid = (long long)nrows * in * sizeof(XT);
+  const long long total = (long long)TC_ROWS * in * sizeof(XT);
+  const unsigned char* src =
+      reinterpret_cast<const unsigned char*>(x + (size_t)r0 * in);
+  if (xvec) {
+    for (long long o = (long long)threadIdx.x * 16; o < total;
+         o += TC_THREADS * 16) {
+      const long long left = valid - o;
+      const int n = left >= 16 ? 16 : left > 0 ? (int)left : 0;
+      cp_async16(stage + o, n ? src + o : reinterpret_cast<const void*>(x),
+                 n);
+    }
+  } else {
+    XT* dst = reinterpret_cast<XT*>(stage);
+    const int elems = TC_ROWS * in, nvalid = nrows * in;
+    for (int e = threadIdx.x; e < elems; e += TC_THREADS) {
+      dst[e] = e < nvalid ? x[(size_t)r0 * in + e] : XT(0.f);
+    }
+  }
+}
+
+// A debug build (-DQKAN_STEP_TIMING, as tools/step_diag_vs_old.py builds
+// it) adds thread 0's clock64() cycles of each phase of a tile, summed over
+// the blocks, to qkan_step_cycles: 0 waiting for x, 1 the basis, 2 the
+// forward and g, 3 dW, 4 the block's start and end.  The package's build
+// has none of it.
+#ifdef QKAN_STEP_TIMING
+__device__ unsigned long long qkan_step_cycles[5];
+#define QKAN_STEP_MARK(i)                      \
+  if (tid == 0) {                              \
+    const long long now = clock64();           \
+    cyc[i] += (unsigned long long)(now - last); \
+    last = now;                                \
+  }
+#else
+#define QKAN_STEP_MARK(i)
+#endif
+
+template <typename XT, int NT, int MPW>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+fused_step_kernel_tc(const XT* __restrict__ x, const float* __restrict__ w2,
+                     const float* __restrict__ y, float* __restrict__ part,
+                     float* __restrict__ gpart, float* __restrict__ lpart,
+                     int B, int in, int dp1, int T, int rows, int kp, int S,
+                     int xstage, int xvec, int apply_tanh, float g_scale) {
+  constexpr bool XBF16 = !std::is_same<XT, float>::value;
+  constexpr int TN = 8 * NT;
+  // separate accumulators for the small passes where registers allow:
+  // shorter chains of dependent mma
+  constexpr int FSETS = acc_sets(NT);
+  constexpr int DSETS = acc_sets(MPW * NT);
+  extern __shared__ __align__(16) float smem[];
+  float* basis = smem;                                   // [64][S]
+  float2* wfrag = reinterpret_cast<float2*>(basis + TC_ROWS * S);
+  float2* gfrag = wfrag + (kp / 8) * NT * 32;            // [8][NT][32]
+  float* csum = reinterpret_cast<float*>(gfrag + 8 * NT * 32);  // [TN]
+  float* gred = csum + TN;                     // [4][8][TN]
+  float* lred = gred + 32 * TN;                // [256]
+  float* ored = lred + TC_THREADS;             // [4][32][4 NT]
+  unsigned char* xring = reinterpret_cast<unsigned char*>(ored + 512 * NT);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int K = in * (dp1 - 1);
+  const int mtiles = kp / 16;
+  const int rb = blockIdx.x;
+  const int r_begin = rb * rows;
+  const int r_end = min(B, r_begin + rows);
+  const int ntiles = (r_end - r_begin + TC_ROWS - 1) / TC_ROWS;
+#ifdef QKAN_STEP_TIMING
+  unsigned long long cyc[5] = {0, 0, 0, 0, 0};
+  long long last = clock64();
+#endif
+
+  // the first tile's x is on its way while W is staged
+  load_x_tile(x, xring, r_begin, r_end, in, xvec);
+  cp_async_commit();
+  for (int e = tid; e < TC_ROWS * S; e += TC_THREADS) basis[e] = 0.f;
+  {
+    float* wf = reinterpret_cast<float*>(wfrag);
+    for (int e = tid; e < kp * TN; e += TC_THREADS) {
+      const int k = e / TN, c = e - k * TN;
+      float w = 0.f;
+      if (k < K && c < T) {
+        w = w2[(size_t)(in + k) * T + c];
+        if (XBF16) w = bf16_round(w);
+      }
+      wf[frag_slot(k, c, NT)] = w;
+    }
+  }
+  if (tid < TN) {
+    float s = 0.f;
+    if (tid < T) {
+      for (int i = 0; i < in; ++i) {
+        float w = w2[(size_t)i * T + tid];
+        if (XBF16) w = bf16_round(w);
+        s += w;
+      }
+    }
+    csum[tid] = s;
+  }
+
+  // forward: warp -> m-tile (warp & 3), every n-tile, the k-steps of
+  // parity warp >> 2; the even half adds the odd half's out and makes g
+  const int fm = warp & 3, kh = warp >> 2;
+  // this thread's first basis item (row, feature) and its stride
+  const int step_r = TC_THREADS / in, step_i = TC_THREADS - step_r * in;
+  float gs[NT][2];  // colsum(g) of this thread's columns
+  float lsum = 0.f;
+  float acc[DSETS][MPW][NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) gs[j][0] = gs[j][1] = 0.f;
+#pragma unroll
+  for (int a = 0; a < DSETS; ++a)
+#pragma unroll
+    for (int m = 0; m < MPW; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[a][m][n][q] = 0.f;
+  QKAN_STEP_MARK(4)
+
+  for (int j = 0; j < ntiles; ++j) {
+    const int r0 = r_begin + j * TC_ROWS;
+    if (j + 1 < ntiles) {
+      load_x_tile(x, xring + ((j + 1) & 1) * xstage, r0 + TC_ROWS, r_end,
+                  in, xvec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // x of tile j is in; tile j-1's readers are done
+    QKAN_STEP_MARK(0)
+
+    // the basis, once: T_1 .. T_{dp1-1} of every (row, feature)
+    {
+      const XT* xs = reinterpret_cast<const XT*>(xring + (j & 1) * xstage);
+      int r = tid / in, i = tid - (tid / in) * in;
+      for (int e = tid; e < TC_ROWS * in; e += TC_THREADS) {
+        float t = qkan::load_as_float(xs + e);
+        if (apply_tanh) {
+          t = tanhf(t);
+          if (XBF16) t = bf16_round(t);
+        }
+        float* row = basis + r * S;
+        const int sz = swz(r);
+        const float two_t = 2.f * t;
+        float prev = 1.f, cur = t;
+        row[i ^ sz] = cur;
+        for (int d = 2; d < dp1; ++d) {
+          const float nxt = qkan::cheb_next<XBF16>(two_t, cur, prev);
+          prev = cur;
+          cur = nxt;
+          row[((d - 1) * in + i) ^ sz] = cur;
+        }
+        r += step_r;
+        i += step_i;
+        if (i >= in) {
+          i -= in;
+          ++r;
+        }
+      }
+    }
+    __syncthreads();
+    QKAN_STEP_MARK(1)
+
+    // out = basis @ W, then err, g and err^2 from the fragments
+    {
+      float o[FSETS][NT][4];
+#pragma unroll
+      for (int a = 0; a < FSETS; ++a)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) o[a][n][q] = 0.f;
+      const int ra = fm * 16 + g8;
+      const float* rowa = basis + ra * S;
+      const float* rowb = rowa + 8 * S;
+      const int sz = swz(ra);  // rows ra and ra + 8 share it
+#pragma unroll 2
+      for (int k0 = 8 * kh; k0 < kp; k0 += 16) {
+        float2 a[4];
+        a_frag<XBF16>(a, rowa[(k0 + t4) ^ sz], rowb[(k0 + t4) ^ sz],
+                      rowa[(k0 + t4 + 4) ^ sz], rowb[(k0 + t4 + 4) ^ sz]);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 b =
+              b_frag<XBF16>(wfrag[((k0 >> 3) * NT + n) * 32 + lane]);
+          mma_3x<XBF16, XBF16>(o[0][n], o[FSETS > 1 ? 1 : 0][n],
+                               o[FSETS - 1][n], a, b);
+        }
+      }
+      float* mine = ored + (fm * 32 + lane) * 4 * NT;
+      if (kh == 1) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            mine[n * 4 + q] = acc_total<FSETS>(o[0][n][q],
+                                               o[FSETS > 1 ? 1 : 0][n][q],
+                                               o[FSETS - 1][n][q]);
+          }
+      }
+      __syncthreads();
+      if (kh == 0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int c0 = n * 8 + 2 * t4;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int r = ra + (q >> 1) * 8, c = c0 + (q & 1);
+            const int b = r0 + r;
+            float gv = 0.f;
+            if (b < r_end && c < T) {
+              const float prod =
+                  acc_total<FSETS>(o[0][n][q], o[FSETS > 1 ? 1 : 0][n][q],
+                                   o[FSETS - 1][n][q]) +
+                  mine[n * 4 + q];
+              const float out = csum[c] + prod;
+              const float err =
+                  y != nullptr ? out - y[(size_t)b * T + c] : out;
+              lsum = fmaf(err, err, lsum);
+              gv = g_scale * err;
+              gs[n][q & 1] += gv;
+            }
+            reinterpret_cast<float*>(gfrag)[frag_slot(r, c, NT)] = gv;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    QKAN_STEP_MARK(2)
+
+    // dW_d += basis^T @ g over the tile's 64 rows
+#pragma unroll
+    for (int k0 = 0; k0 < TC_ROWS; k0 += 8) {
+      float4 b[NT];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        b[n] = b_frag<false>(gfrag[((k0 >> 3) * NT + n) * 32 + lane]);
+      }
+      const float* row0 = basis + (k0 + t4) * S;
+      const float* row4 = row0 + 4 * S;
+      const int sz0 = swz(t4), sz4 = swz(t4 + 4);  // rows k0+t4, k0+t4+4
+#pragma unroll
+      for (int m = 0; m < MPW; ++m) {
+        const int mt = warp + 8 * m;
+        if (mt < mtiles) {
+          const int col = mt * 16 + g8;
+          float2 a[4];
+          a_frag<XBF16>(a, row0[col ^ sz0], row0[(col + 8) ^ sz0],
+                        row4[col ^ sz4], row4[(col + 8) ^ sz4]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            mma_3x<XBF16, false>(acc[0][m][n], acc[DSETS > 1 ? 1 : 0][m][n],
+                                 acc[DSETS - 1][m][n], a, b[n]);
+          }
+        }
+      }
+    }
+    QKAN_STEP_MARK(3)
+  }
+
+  // the block's partials, each written once
+#pragma unroll
+  for (int m = 0; m < MPW; ++m) {
+    const int mt = warp + 8 * m;
+    if (mt < mtiles) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int k = mt * 16 + g8 + (q >> 1) * 8;
+          const int c = n * 8 + 2 * t4 + (q & 1);
+          if (k < K && c < T) {
+            part[((size_t)rb * K + k) * T + c] = acc_total<DSETS>(
+                acc[0][m][n][q], acc[DSETS > 1 ? 1 : 0][m][n][q],
+                acc[DSETS - 1][m][n][q]);
+          }
+        }
+      }
+    }
+  }
+  if (kh == 0) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c0 = n * 8 + 2 * t4;
+      gred[(fm * 8 + g8) * TN + c0] = gs[n][0];
+      gred[(fm * 8 + g8) * TN + c0 + 1] = gs[n][1];
+    }
+  }
+  lred[tid] = lsum;
+  __syncthreads();
+  if (tid < T) {
+    float s = 0.f;
+    for (int e = 0; e < 32; ++e) s += gred[e * TN + tid];
+    gpart[(size_t)rb * T + tid] = s;
+  }
+  if (tid == 0) {
+    float s = 0.f;
+    for (int e = 0; e < TC_THREADS; ++e) s += lred[e];
+    lpart[rb] = s;
+  }
+#ifdef QKAN_STEP_TIMING
+  QKAN_STEP_MARK(4)
+  if (tid == 0) {
+    for (int e = 0; e < 5; ++e) atomicAdd(&qkan_step_cycles[e], cyc[e]);
+  }
+#endif
+}
+
+template <typename XT, int NT, int MPW>
+cudaError_t launch_step_tc(const void* x, const float* w2, const float* y,
+                           float* loss, float* ws, const Layout& L,
+                           const TcShape& sh, int B, int in, int dp1, int T,
+                           int apply_tanh, float g_scale, float loss_scale,
+                           cudaStream_t s) {
+  auto kernel = fused_step_kernel_tc<XT, NT, MPW>;
+  if (sh.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+    if (err != cudaSuccess) return err;
+  }
+  float* part = ws;
+  float* gpart = part + L.part_floats;
+  float* lpart = gpart + L.gpart_floats;
+  const int xvec = (reinterpret_cast<unsigned long long>(x) & 15) == 0;
+  kernel<<<L.nrb, TC_THREADS, sh.smem, s>>>(
+      static_cast<const XT*>(x), w2, y, part, gpart, lpart, B, in, dp1, T,
+      L.rows, sh.kp, sh.s, sh.xstage, xvec, apply_tanh, g_scale);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fused_step_loss_kernel<<<1, 256, 0, s>>>(lpart, L.nrb, loss_scale, loss);
+  return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t dispatch_step_tc(const void* x, const float* w2, const float* y,
+                             float* loss, float* ws, const Layout& L,
+                             const TcShape& sh, int B, int in, int dp1,
+                             int T, int apply_tanh, float g_scale,
+                             float loss_scale, cudaStream_t s) {
+#define QKAN_TC(NT, MPW)                                                   \
+  if (sh.nt == NT && sh.mpw == MPW) {                                      \
+    return launch_step_tc<XT, NT, MPW>(x, w2, y, loss, ws, L, sh, B, in,   \
+                                       dp1, T, apply_tanh, g_scale,        \
+                                       loss_scale, s);                     \
+  }
+  QKAN_TC(1, 1) QKAN_TC(1, 2) QKAN_TC(1, 4) QKAN_TC(1, 8)
+  QKAN_TC(2, 1) QKAN_TC(2, 2) QKAN_TC(2, 4)
+  QKAN_TC(4, 1) QKAN_TC(4, 2)
+  QKAN_TC(8, 1)
+#undef QKAN_TC
+  return cudaErrorInvalidValue;
+}
+
 template <typename XT, int TP>
 cudaError_t launch_step(const void* x, const float* w2, const float* y,
                         float* loss, float* ws, const Layout& L, int B,
@@ -766,8 +1362,8 @@ extern "C" int qkan_fused_bwd(const void* x, const void* w2, const void* g,
              apply_tanh, want_dx, dw, stream);
 }
 
-// The fixed-order pass alone, over a workspace that an entry above or
-// qkan_fused_step filled for the same (B, in, dp1, T, want_dx): dw
+// The fixed-order pass alone, over a workspace that an entry above filled
+// for the same (B, in, dp1, T, want_dx) (a train step's: below): dw
 // [dp1*in, T] f32, in the order of qkan_partial_sum_segments(nrb,
 // (dp1-1)*in*T).
 extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
@@ -783,44 +1379,94 @@ extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
                             static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of workspace a train step needs: a backward's with want_dx = 0
-// (dW and colsum(g) partials), then one loss partial per row block.
+// Bytes of workspace a train step needs: K5's layout (step_layout) of dW
+// and colsum(g) partials, then one loss partial per row block.
 extern "C" long long qkan_fused_step_workspace_bytes(int B, int in, int dp1,
                                                      int T) {
   if (bad_shape(B, in, dp1, T)) return 0;
-  const Layout L = layout(B, in, dp1, T, 0);
+  const Layout L = step_layout(B, in, dp1, T);
   return (long long)(workspace_bytes(L) + (size_t)L.nrb * sizeof(float));
+}
+
+// Row blocks of a train step, the leading dimension of its partials: a
+// function of (B, in, dp1, T) alone.
+extern "C" int qkan_fused_step_row_blocks(int B, int in, int dp1, int T) {
+  if (bad_shape(B, in, dp1, T)) return 0;
+  return step_layout(B, in, dp1, T).nrb;
+}
+
+// 1 where the step of these shapes runs fused_step_kernel_tc (the tensor
+// cores), 0 where it runs the CUDA-core fused_step_kernel.
+extern "C" int qkan_fused_step_tensor_cores(int in, int dp1, int T) {
+  if (bad_shape(1, in, dp1, T)) return 0;
+  return tc_shape(in, dp1, T).ok ? 1 : 0;
 }
 
 // The fused train step (kan_train_step_fused).  x: [B, in] f32
 // (x_is_bf16=0) or bf16 (1); w2: [dp1*in, T] f32; y: [B, T] f32 for 'mse',
 // null for 'sumsq' (then never read); loss: one f32; ws: at least
 // qkan_fused_step_workspace_bytes; dw: [dp1*in, T] f32, or null.  All
-// contiguous.  Launches the step kernel, the one-block loss sum and, given
-// dw, the fixed-order pass into it (one call a step); without dw, dW comes
-// from qkan_fused_bwd_partial_sum over ws with want_dx = 0.  Returns the
-// CUDA error of the launches (0 on success), allocates nothing and does
-// not synchronise.
+// contiguous.  Launches the step kernel (fused_step_kernel_tc where
+// tc_shape takes the shapes, else fused_step_kernel), the one-block loss
+// sum and, given dw, the fixed-order pass into it (one call a step);
+// without dw, dW comes from qkan_fused_step_partial_sum over ws.  Returns
+// the CUDA error of the launches (0 on success), allocates nothing and
+// does not synchronise.
 extern "C" int qkan_fused_step(const void* x, const void* w2, const void* y,
                                void* loss, void* ws, long long ws_bytes,
                                int B, int in, int dp1, int T, int x_is_bf16,
                                int apply_tanh, float g_scale,
                                float loss_scale, void* dw, void* stream) {
   if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
-  const Layout L = layout(B, in, dp1, T, 0);
+  const Layout L = step_layout(B, in, dp1, T);
   if (ws_bytes < 0 ||
       (size_t)ws_bytes < workspace_bytes(L) + (size_t)L.nrb * sizeof(float)) {
     return (int)cudaErrorInvalidValue;
   }
+  const TcShape sh = tc_shape(in, dp1, T);
   const float* w = static_cast<const float*>(w2);
   const float* yy = static_cast<const float*>(y);
   float* l = static_cast<float*>(loss);
   float* f = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      x_is_bf16
-          ? dispatch_step<__nv_bfloat16>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s)
-          : dispatch_step<float>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
+  cudaError_t err;
+  if (sh.ok) {
+    err = x_is_bf16
+              ? dispatch_step_tc<__nv_bfloat16>(x, w, yy, l, f, L, sh, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s)
+              : dispatch_step_tc<float>(x, w, yy, l, f, L, sh, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
+  } else {
+    err = x_is_bf16
+              ? dispatch_step<__nv_bfloat16>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s)
+              : dispatch_step<float>(x, w, yy, l, f, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
+  }
   if (err != cudaSuccess || dw == nullptr) return (int)err;
   return (int)sum_workspace(f, L, in, dp1, T, static_cast<float*>(dw), s);
 }
+
+// The fixed-order pass alone over a train step's workspace for the same
+// (B, in, dp1, T): dw [dp1*in, T] f32, in the order of
+// qkan_partial_sum_segments(nrb, (dp1-1)*in*T).
+extern "C" int qkan_fused_step_partial_sum(const void* ws, long long ws_bytes,
+                                           void* dw, int B, int in, int dp1,
+                                           int T, void* stream) {
+  if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
+  const Layout L = step_layout(B, in, dp1, T);
+  if (ws_bytes < 0 ||
+      (size_t)ws_bytes < workspace_bytes(L) + (size_t)L.nrb * sizeof(float)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)sum_workspace(static_cast<const float*>(ws), L, in, dp1, T,
+                            static_cast<float*>(dw),
+                            static_cast<cudaStream_t>(stream));
+}
+
+#ifdef QKAN_STEP_TIMING
+// The debug build's phase cycles (see QKAN_STEP_MARK), read and reset.
+extern "C" int qkan_step_phase_cycles(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, qkan_step_cycles,
+                                         sizeof(qkan_step_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[5] = {0, 0, 0, 0, 0};
+  return (int)cudaMemcpyToSymbol(qkan_step_cycles, zero, sizeof(zero));
+}
+#endif

@@ -28,7 +28,8 @@
 // K9 12 B, K10 8 B.  The design keeps every access coalesced and single:
 // one thread per pair (or element), neighbouring threads on neighbouring
 // i, each input read once and each output written once, out of place, no
-// shared memory.  A grid-stride loop covers any power-of-two size and any
+// shared memory (K9's own design, 16-byte vectors, is at its kernel).
+// A grid-stride loop covers any power-of-two size and any
 // qubit (the TPU's 8x128 tile rules have no counterpart), with sizes
 // passed as log2 so the index math is shifts and masks.  Trig is the
 // accurate sincosf/sincos (no fast-math intrinsics): FABLE's angles run
@@ -96,17 +97,58 @@ ucry_kernel(const T* __restrict__ psi, const T* __restrict__ theta,
   }
 }
 
+// K9, psi * d, redesigned for the H100.  A thread moves one 16-byte
+// vector (float4, or double2 in f64) of psi and of d: two independent
+// 16-byte loads, then one 16-byte store.  The grid is sized from the
+// vector count (one block per 256 vectors), not capped: the old
+// grid-stride loop under stream_grid's 8 blocks an SM moved 4 bytes a
+// load and held the kernel to 82 % of the HBM rate at 27 qubits.  The
+// diagonal's row is found once a vector.  Plain cached loads and stores:
+// on the H100 (tools/step_diag_vs_old.py) streaming hints (__ldcs /
+// __stcs) and 2-8 vectors a thread were no faster at 27 qubits and slower
+// at 21, where psi, d and out stay in the 50 MB L2 between calls.  A
+// state narrower than one vector, or a pointer off 16 bytes (a view at an
+// odd offset), takes the scalar path in the same kernel (`vec` = 0).
+constexpr int DIAG_ITEMS = THREADS;  // vectors (or elements) a block
+
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ float4 mul(float4 a, float4 b) {
+    return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+  }
+};
+template <>
+struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  static __device__ __forceinline__ double2 mul(double2 a, double2 b) {
+    return make_double2(a.x * b.x, a.y * b.y);
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 diag_kernel(const T* __restrict__ psi, const T* __restrict__ d,
             T* __restrict__ out, long long total, int log_dim,
-            long long diag_stride) {
+            long long diag_stride, int vec) {
+  using V = typename Vec16<T>::type;
+  constexpr int N = Vec16<T>::n;
   const long long mask = (1LL << log_dim) - 1;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < total; idx += step) {
-    const long long b = idx >> log_dim;
-    out[idx] = psi[idx] * d[b * diag_stride + (idx & mask)];
+  const long long v = (long long)blockIdx.x * DIAG_ITEMS + threadIdx.x;
+  if (vec) {
+    if (v < total / N) {
+      const long long e = v * N;  // a vector never crosses a row
+      const V p = reinterpret_cast<const V*>(psi)[v];
+      const V q = *reinterpret_cast<const V*>(
+          d + (e >> log_dim) * diag_stride + (e & mask));
+      reinterpret_cast<V*>(out)[v] = Vec16<T>::mul(p, q);
+    }
+  } else if (v < total) {
+    out[v] = psi[v] * d[(v >> log_dim) * diag_stride + (v & mask)];
   }
 }
 
@@ -157,14 +199,24 @@ cudaError_t launch_ucry(const void* psi, const void* theta, void* out,
   return cudaGetLastError();
 }
 
+bool aligned16(const void* p) {
+  return (reinterpret_cast<unsigned long long>(p) & 15) == 0;
+}
+
 template <typename T>
 cudaError_t launch_diag(const void* psi, const void* d, void* out,
                         long long batch, int log_dim, long long stride,
                         cudaStream_t st) {
   const long long total = batch << log_dim;
-  diag_kernel<T><<<qkan::stream_grid(total, THREADS), THREADS, 0, st>>>(
+  constexpr int N = Vec16<T>::n;
+  const int vec = (1LL << log_dim) >= N && aligned16(psi) && aligned16(d) &&
+                  aligned16(out);
+  const long long items = vec ? total / N : total;
+  const long long blocks = (items + DIAG_ITEMS - 1) / DIAG_ITEMS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  diag_kernel<T><<<(unsigned)blocks, THREADS, 0, st>>>(
       static_cast<const T*>(psi), static_cast<const T*>(d),
-      static_cast<T*>(out), total, log_dim, stride);
+      static_cast<T*>(out), total, log_dim, stride, vec);
   return cudaGetLastError();
 }
 

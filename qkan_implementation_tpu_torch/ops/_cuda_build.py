@@ -158,6 +158,13 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_step.argtypes = [
                 p, p, p, p, p, ll, i, i, i, i, i, i, f, f, p, p,
             ]
+            lib.qkan_fused_step_row_blocks.argtypes = [i, i, i, i]
+            lib.qkan_fused_step_row_blocks.restype = i
+            lib.qkan_fused_step_tensor_cores.argtypes = [i, i, i]
+            lib.qkan_fused_step_tensor_cores.restype = i
+            lib.qkan_fused_step_partial_sum.argtypes = [
+                p, ll, p, i, i, i, i, p,
+            ]
             # the fixed-order partial-sum pass (csrc/partial_sum.cu)
             lib.qkan_partial_sum_segments.argtypes = [i, ll]
             lib.qkan_partial_sum_segments.restype = i
@@ -183,6 +190,7 @@ def load_library() -> ctypes.CDLL:
             for entry in ("qkan_fused_dw_fwd", "qkan_fused_fwd",
                           "qkan_fused_dw_bwd", "qkan_fused_bwd",
                           "qkan_fused_bwd_partial_sum", "qkan_fused_step",
+                          "qkan_fused_step_partial_sum",
                           "qkan_ucry_cs", "qkan_ucry", "qkan_diag_mult",
                           "qkan_h_pair", "qkan_m3_fwd", "qkan_m3_bwd",
                           "qkan_m3_dm_sum", "qkan_exchange_ucry",

@@ -30,19 +30,23 @@ Each function has two versions:
 A backward (and the train step) writes per-block dW partials to a
 workspace and sums them with the fixed-order pass of
 ``csrc/partial_sum.cu``, launched by the same library call: one call a
-backward.  ``fixed_order_sum_reference`` is that pass's plain version in
-its own order (equal to it bit for bit); ``fused_bwd_partial_sum`` runs
-the pass alone over a workspace.
+backward.  The row blocks are a function of the sizes alone: K2/K4's
+``fused_bwd_layout``, K5's ``fused_step_layout`` (plain mirrors of the C
+layouts, which a GPU test holds equal).  ``fixed_order_sum_reference``
+is that pass's plain version in its own order (equal to it bit for
+bit); ``fused_bwd_partial_sum`` runs the pass alone over a workspace.
 
 ``kan_layer_fused_dw`` and ``kan_layer_fused`` are differentiable in x and
 w2 through one ``torch.autograd.Function`` each: forward and backward both
 run the kernel on a CUDA tensor and the plain version on a CPU tensor, so
 the CPU tests exercise the hand-written backward, not autograd's.
 
-Precision.  'high' and 'default' are FP32 products with FP32 sums (CUDA
-cores give true f32 products, so the TPU's bf16x3 split has no
-counterpart).  The recurrences run in x's dtype, so a bf16 x rounds tanh
-and every recurrence op to bf16.  Then:
+Precision.  'high' and 'default' are FP32 products with FP32 sums: on
+the CUDA cores, and in the train step's tensor-core kernel as 3xTF32
+(each f32 operand split into two TF32 parts, three products summed in
+FP32: the counterpart of the TPU's bf16x3 split).  The recurrences run
+in x's dtype, so a bf16 x rounds tanh and every recurrence op to bf16.
+Then:
 
 - degree-wise 'bf16' rounds T_d, W_d (d >= 1) and g to bf16 before each
   product and accumulates in f32; colsum(W_0) and colsum(g) stay f32;
@@ -242,13 +246,92 @@ def fixed_order_sum_reference(part: torch.Tensor,
 # -- CUDA launches ----------------------------------------------------------
 
 
+# the constants of the layouts in csrc/fused_dw_bwd.cu and of the pass's
+# segments in csrc/partial_sum.cu, which the plain functions below mirror
+_PARTIAL_BUDGET = 4 << 20  # bytes of dW partials
+_STEP_WIDE_BUDGET = 32 << 20  # K5's on the CUDA-core path
+_GROWS = 32                # K2's rows come in multiples of it
+_TC_ROWS, _TC_GRID, _TC_ACC, _TC_THREADS = 64, 264, 8, 256
+_TC_SMEM_MAX = 232448      # a block's shared memory on sm_90
+_PS_SMALL_NBLK, _PS_MAX_SEGMENTS, _PS_SEGMENT_LOADS = 32, 32, 16
+_PS_FILL_THREADS = 132 * 256
+
+
 def partial_sum_segments(nblk: int, per: int) -> int:
     """Segments of the fixed-order pass over ``nblk`` partials of ``per``
-    floats (C entry ``qkan_partial_sum_segments``): a function of the two
-    alone, so the pass gives the same bits on every call."""
-    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+    floats: a function of the two alone, so the pass gives the same bits
+    on every call and every card.  The plain mirror of the C entry
+    ``qkan_partial_sum_segments`` (a GPU test holds the two equal): one
+    segment up to 32 partials, else the fewest that walk <= 16 partials
+    each and fill 132 x 256 threads, a power of two, <= 32 and <= nblk."""
+    if nblk < 1 or per < 0:
+        return 0
+    if nblk <= _PS_SMALL_NBLK:
+        return 1
+    units = (per + 3) // 4
+    want = -(-nblk // _PS_SEGMENT_LOADS)
+    fill = -(-_PS_FILL_THREADS // units) if units > 0 else _PS_MAX_SEGMENTS
+    want = max(want, fill)
+    segments = 1
+    while segments < want and segments < _PS_MAX_SEGMENTS:
+        segments <<= 1
+    return min(segments, nblk)
 
-    return load_library().qkan_partial_sum_segments(nblk, per)
+
+def fused_bwd_layout(b: int, n: int, dp1: int, t_dim: int,
+                     budget: int = _PARTIAL_BUDGET) -> tuple:
+    """(rows a block, row blocks) of a backward (K2/K4) at these sizes: the
+    plain mirror of ``layout()`` in ``csrc/fused_dw_bwd.cu`` (C entry
+    ``qkan_fused_bwd_row_blocks``).  Rows come in multiples of 32, and as
+    few blocks as keep the dW partials under ``budget`` bytes (4 MB)."""
+    per_rb = (dp1 - 1) * n * t_dim * 4
+    max_nrb = max(budget // per_rb if per_rb else b, 1)
+    rows = -(-b // max_nrb)
+    rows = -(-rows // _GROWS) * _GROWS
+    return rows, -(-b // rows)
+
+
+def fused_step_tensor_cores(n: int, dp1: int, t_dim: int) -> bool:
+    """Whether the train step at these sizes runs on the tensor cores
+    (``fused_step_kernel_tc``): the plain mirror of ``tc_shape()`` in
+    ``csrc/fused_dw_bwd.cu`` (C entry ``qkan_fused_step_tensor_cores``).
+    It takes dp1 >= 2 where a block's 8 warps hold all of dW in registers
+    (mpw * nt <= 8 (m16, n8) tiles a warp, nt the n8-tiles of T and mpw
+    the m16-tiles of K = in*(dp1-1) over 8 warps, each as 1, 2, 4 or 8;
+    K <= 1024) and a 64-row tile's shared memory fits;
+    other shapes (the flagship's in = 784, dp1 = 1) run the CUDA-core
+    kernel."""
+    n8 = -(-t_dim // 8)
+    nt = 1 if n8 <= 1 else 2 if n8 <= 2 else 4 if n8 <= 4 else 8
+    tn = 8 * nt
+    k = n * (dp1 - 1)
+    kp, s = -(-k // 16) * 16, -(-k // 32) * 32
+    need = -(-(kp // 16) // 8)
+    mpw = 1 if need <= 1 else 2 if need <= 2 else 4 if need <= 4 else 8
+    xstage = -(-(_TC_ROWS * n * 4) // 16) * 16
+    smem = (4 * (_TC_ROWS * s + kp * tn + _TC_ROWS * tn + tn + 32 * tn
+                 + _TC_THREADS + 64 * tn)
+            + 2 * xstage)
+    return (dp1 >= 2 and k <= 1024 and mpw * nt <= _TC_ACC
+            and smem <= _TC_SMEM_MAX)
+
+
+def fused_step_layout(b: int, n: int, dp1: int, t_dim: int) -> tuple:
+    """(tensor cores, rows a block, row blocks) of a train step (K5): the
+    plain mirror of ``step_layout()`` in ``csrc/fused_dw_bwd.cu`` (C entry
+    ``qkan_fused_step_row_blocks``), a function of the sizes alone.  On
+    the tensor cores: at most 264 persistent row blocks of whole 64-row
+    tiles, fewer where the dW partials would pass 4 MB; else K2's
+    layout under a 32 MB budget (128 row blocks at the flagship's layer
+    0, B 4096, where 4 MB left 26 for 132 SMs)."""
+    if not fused_step_tensor_cores(n, dp1, t_dim):
+        return (False, *fused_bwd_layout(b, n, dp1, t_dim,
+                                         _STEP_WIDE_BUDGET))
+    tiles = -(-b // _TC_ROWS)
+    per_rb = (dp1 - 1) * n * t_dim * 4
+    nrb = max(min(_PARTIAL_BUDGET // per_rb, _TC_GRID, tiles), 1)
+    rows = -(-tiles // nrb) * _TC_ROWS
+    return True, rows, -(-b // rows)
 
 
 def _check_layer_args(x, w2, dp1):
@@ -353,23 +436,34 @@ def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
     return dx, ws, dw
 
 
-def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True):
-    """dW [dp1*in, T] f32 from the workspace of a backward pass at these
-    sizes: the partials summed over row blocks in a fixed order (the pass
-    alone, entry ``qkan_fused_bwd_partial_sum``; the backwards launch it
-    themselves).  Counts ``fused_bwd_partial_sum.launches``, as do the
-    backwards and the train step where they launch it."""
+def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True, *,
+                          step=False):
+    """dW [dp1*in, T] f32 from the workspace of a backward pass (or, with
+    ``step``, of a train step) at these sizes: the partials summed over
+    row blocks in a fixed order (the pass alone, entries
+    ``qkan_fused_bwd_partial_sum`` / ``qkan_fused_step_partial_sum``; the
+    backwards and the step launch it themselves).  Counts
+    ``fused_bwd_partial_sum.launches``, as do the backwards and the train
+    step where they launch it."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
     dw = torch.empty((dp1 * n, t_dim), dtype=torch.float32, device=ws.device)
     with torch.cuda.device(ws.device):
         stream = torch.cuda.current_stream(ws.device).cuda_stream
-        err = lib.qkan_fused_bwd_partial_sum(
-            ws.data_ptr(), ws.numel(), dw.data_ptr(), max(b, 1), n, dp1,
-            t_dim, int(want_dx), stream,
-        )
-    _raise_on_error(lib, err, "qkan_fused_bwd_partial_sum")
+        if step:
+            entry = "qkan_fused_step_partial_sum"
+            err = lib.qkan_fused_step_partial_sum(
+                ws.data_ptr(), ws.numel(), dw.data_ptr(), max(b, 1), n, dp1,
+                t_dim, stream,
+            )
+        else:
+            entry = "qkan_fused_bwd_partial_sum"
+            err = lib.qkan_fused_bwd_partial_sum(
+                ws.data_ptr(), ws.numel(), dw.data_ptr(), max(b, 1), n, dp1,
+                t_dim, int(want_dx), stream,
+            )
+    _raise_on_error(lib, err, entry)
     _count(fused_bwd_partial_sum, "launches")
     return dw
 
@@ -377,33 +471,36 @@ def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True):
 fused_bwd_partial_sum.launches = 0
 
 
-def fused_bwd_workspace_partials(ws, b, n, dp1, t_dim) -> tuple:
-    """Views of a backward's (or a train step's) workspace on the card:
-    the dW_d (d >= 1) partials [nrb, (dp1-1)*in*T] and the colsum(g)
-    partials [nrb, T], nrb row blocks.  The pass sums both in the order of
+def fused_bwd_workspace_partials(ws, b, n, dp1, t_dim, *,
+                                 step=False) -> tuple:
+    """Views of a backward's (or, with ``step``, a train step's)
+    workspace: the dW_d (d >= 1) partials [nrb, (dp1-1)*in*T] and the
+    colsum(g) partials [nrb, T], nrb row blocks from ``fused_bwd_layout``
+    (``fused_step_layout``).  The pass sums both in the order of
     ``partial_sum_segments(nrb, (dp1-1)*in*T)``."""
-    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
-
-    nrb = load_library().qkan_fused_bwd_row_blocks(max(b, 1), n, dp1, t_dim)
+    nrb = (fused_step_layout(max(b, 1), n, dp1, t_dim)[2] if step
+           else fused_bwd_layout(max(b, 1), n, dp1, t_dim)[1])
     f = ws.view(torch.float32)
     per_rb = (dp1 - 1) * n * t_dim
     return (f[: nrb * per_rb].view(nrb, per_rb),
             f[nrb * per_rb : nrb * (per_rb + t_dim)].view(nrb, t_dim))
 
 
-def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim):
+def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim, *, step=False):
     """Plain torch version of ``fused_bwd_partial_sum``: the same sums
-    over the [row blocks, ...] partials of a workspace on the card."""
-    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+    over the [row blocks, ...] partials of a workspace."""
+    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim,
+                                               step=step)
     return torch.cat([gpart.sum(dim=0).expand(n, -1),
                       part.sum(dim=0).view(-1, t_dim)])
 
 
-def fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim):
+def fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, *, step=False):
     """Plain torch version of ``fused_bwd_partial_sum`` in the kernel's own
     order (``fixed_order_sum_reference`` over both kinds of partials, with
-    the card's segment count): the kernel equals it bit for bit."""
-    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+    the pass's segment count): the kernel equals it bit for bit."""
+    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim,
+                                               step=step)
     segments = partial_sum_segments(part.shape[0], part.shape[1])
     return torch.cat([
         fixed_order_sum_reference(gpart, segments).expand(n, -1),
@@ -617,7 +714,8 @@ def _step_pass(x, w2, dp1, y, loss, apply_tanh, finish: bool = False):
 
     lib = load_library()
     ws_bytes = lib.qkan_fused_step_workspace_bytes(b, n, dp1, t_dim)
-    # K2's dW and colsum(g) partials, then one loss partial per row block
+    # K5's dW and colsum(g) partials (fused_step_layout), then one loss
+    # partial per row block
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
     loss_out = torch.empty((), dtype=torch.float32, device=x.device)
     dw = (torch.empty((dp1 * n, t_dim), dtype=torch.float32, device=x.device)
@@ -665,11 +763,15 @@ def kan_train_step_fused(
     L = mean((out - y)^2) over all B*T elements.  dX is not produced (the
     input is data).  ``x`` is float32 or bfloat16 (the v1 rounding points
     of ``kan_layer_fused``), ``w2`` and ``y`` float32; 'high' and
-    'default' are both FP32 products.  A CPU tensor runs
+    'default' are both FP32-class products.  A CPU tensor runs
     ``kan_train_step_fused_reference``; a CUDA tensor launches the kernel
     ``qkan_fused_step`` (``csrc/fused_dw_bwd.cu``: counted on
     ``kan_train_step_fused.launches``) and the fixed-order dW pass (counted
     on ``fused_bwd_partial_sum.launches``) in one library call, or raises.
+    The kernel runs on the tensor cores (3xTF32, the basis built once a
+    64-row tile, a persistent grid) where ``fused_step_tensor_cores``
+    takes the sizes, else as the CUDA-core kernel (the flagship's
+    layer 0, dp1 = 1).
 
     Any B >= 1 is taken: the kernel masks the rows past B, so nothing is
     padded and 'mse' is not biased.  ``tile_b`` is accepted for the JAX

@@ -125,43 +125,61 @@ def _check_state(psi: torch.Tensor, name: str) -> torch.Tensor:
             f"{name}: the kernel takes a float32 or float64 state, got "
             f"{psi.dtype}"
         )
-    return psi.contiguous()
+    return psi if psi.is_contiguous() else psi.contiguous()
 
 
 def _rows(param: torch.Tensor, psi: torch.Tensor, m: int, name: str):
     """(param as a contiguous tensor in psi's dtype, its batch stride):
     [m] is shared (stride 0), [..., m] with psi's leading axes has one
-    row per state (stride m)."""
-    if param.device != psi.device:
+    row per state (stride m).  Checked with the tensors' own attributes,
+    no device objects: the wrappers run once a gate."""
+    if param.get_device() != psi.get_device():
         raise ValueError(f"{name}: on {param.device}, the state on {psi.device}")
-    if param.shape[-1] != m:
-        raise ValueError(f"{name}: last axis {param.shape[-1]}, expected {m}")
-    if param.dim() == 1:
+    shape = param.shape
+    if shape[-1] != m:
+        raise ValueError(f"{name}: last axis {shape[-1]}, expected {m}")
+    if len(shape) == 1:
         stride = 0
-    elif tuple(param.shape[:-1]) == tuple(psi.shape[:-1]):
+    elif shape[:-1] == psi.shape[:-1]:
         stride = m
     else:
         raise ValueError(
-            f"{name}: shape {tuple(param.shape)} is neither [{m}] nor the "
+            f"{name}: shape {tuple(shape)} is neither [{m}] nor the "
             f"state's leading axes {tuple(psi.shape[:-1])} + [{m}]"
         )
-    return param.to(psi.dtype).contiguous(), stride
+    if param.dtype != psi.dtype:
+        param = param.to(psi.dtype)
+    return (param if param.is_contiguous() else param.contiguous()), stride
+
+
+_LIB = None  # the loaded kernel library, once the first launch built it
+_RAW_STREAM = None  # card index -> the raw handle of its current stream
 
 
 def _library():
-    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+    global _LIB, _RAW_STREAM
+    if _LIB is None:
+        from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
-    return load_library()
+        # the binding PyTorch's own generated code reads, without building
+        # a torch.cuda.Stream object a call
+        _RAW_STREAM = torch._C._cuda_getCurrentRawStream
+        _LIB = load_library()
+    return _LIB
 
 
 def _launch(entry: str, psi, out, args: tuple, owner, attr: str):
-    """Call one C entry on psi's device and stream, raise on its error and
-    count the launch."""
+    """Call one C entry on psi's card and its current stream, raise on its
+    error and count the launch.  The card is made current only when it is
+    not already: the entries launch on the calling thread's device."""
     lib = _library()
-    with torch.cuda.device(psi.device):
-        stream = torch.cuda.current_stream(psi.device).cuda_stream
-        err = getattr(lib, entry)(*args, int(psi.dtype == torch.float64),
-                                  stream)
+    index = psi.get_device()
+    f64 = int(psi.dtype is torch.float64)
+    if index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*args, f64, _RAW_STREAM(index))
+    else:
+        with torch.cuda.device(index):
+            err = getattr(lib, entry)(*args, f64, _RAW_STREAM(index))
     raise_on_error(lib, err, entry)
     count_launches(owner, attr)
     return out
@@ -326,7 +344,7 @@ def diag_mult_pallas(psi, diag):
 
     ``psi`` [..., n], ``diag`` [n] or [..., n].  Counts ``.launches``.
     """
-    if _device_of(psi) == "cpu":
+    if not psi.is_cuda and _device_of(psi) == "cpu":
         return diag_mult_reference(psi, diag)
     _no_backward("diag_mult_pallas", psi, diag)
     psi = _check_state(psi, "qkan_diag_mult")
@@ -334,12 +352,13 @@ def diag_mult_pallas(psi, diag):
     log_dim = _log2(n, "qkan_diag_mult: state size")
     d, stride = _rows(diag, psi, n, "qkan_diag_mult")
     out = torch.empty_like(psi)
-    batch = psi.numel() // n
-    if batch == 0:
+    numel = out.numel()
+    if numel == 0:
         return out
     return _launch("qkan_diag_mult", psi, out,
-                   (psi.data_ptr(), d.data_ptr(), out.data_ptr(), batch,
-                    log_dim, stride), diag_mult_pallas, "launches")
+                   (psi.data_ptr(), d.data_ptr(), out.data_ptr(),
+                    numel >> log_dim, log_dim, stride),
+                   diag_mult_pallas, "launches")
 
 
 diag_mult_pallas.launches = 0

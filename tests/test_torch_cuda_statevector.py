@@ -68,6 +68,35 @@ CASES += [(q, lead, shared, dtype)
           for dtype in (torch.float32, torch.float64)]
 
 
+def _odd_view(t: torch.Tensor) -> torch.Tensor:
+    """The same values as a contiguous view one element into a larger
+    buffer: a pointer off 16 bytes."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("q", [0, 1, 2, 3, 10, 21])
+@pytest.mark.parametrize("shared", [True, False], ids=["shared", "per_row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_diag_kernel_vectors_and_scalar_edges(cuda, q, shared, dtype):
+    """K9 on a batch of 3 states of 2^q amplitudes: the 16-byte path, a
+    state narrower than one vector (q < 2 in f32, q < 1 in f64) and psi
+    or d at an odd element offset (the kernel's scalar path) give the
+    bits of the plain product, twice."""
+    rng = np.random.default_rng(100 + q)
+    psi = _state(rng, (3,), q, dtype, cuda)
+    diag = _angles(rng, (3,), 2**q, shared, dtype, cuda, -1.0, 1.0)
+    want = pk.diag_mult_reference(psi, diag)
+    for p, d in ((psi, diag), (_odd_view(psi), diag), (psi, _odd_view(diag)),
+                 (_odd_view(psi), _odd_view(diag))):
+        got = pk.diag_mult_pallas(p, d)
+        _held(got, want, dtype)
+        assert torch.equal(got, want)
+        assert torch.equal(pk.diag_mult_pallas(p, d), got)
+
+
 @pytest.mark.parametrize("q,lead,shared,dtype", CASES)
 def test_ucry_kernels_match_plain(cuda, q, lead, shared, dtype):
     rng = np.random.default_rng(q)

@@ -10,20 +10,28 @@ This file imports torch and numpy only, so it runs where JAX is absent:
 Bars: dW within 1e-4 max|plain dW| + 1e-5 (the bars of the other fused
 kernels: FP32 on both sides, only the order of the sums differs; with a
 bf16 x both sides round tanh, the recurrence and w2 at the same points),
-the loss within rtol 1e-4.  The kernel sums in a fixed order and uses no
-float atomics, so two runs on the same inputs give the same bits.
+the loss within rtol 1e-4 (the tensor-core kernel's 3xTF32 products
+are within 2^-20 of an f32 product, well inside both).  The kernel sums
+in a fixed order and uses no float atomics, so two runs on the same
+inputs give the same bits.  The C entries that fix the row blocks equal
+their plain Python mirrors, which the CPU tests reach.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 from qkan_implementation_tpu_torch.ops.fused_layer import (
     _step_pass,
     fused_bwd_fixed_order_reference,
+    fused_bwd_layout,
     fused_bwd_partial_sum,
+    fused_step_layout,
+    fused_step_tensor_cores,
     kan_train_step_fused,
     kan_train_step_fused_reference,
+    partial_sum_segments,
 )
 
 pytestmark = pytest.mark.gpu
@@ -94,8 +102,8 @@ def test_step_kernel_main_shapes_and_same_bits(cuda, b, n, dp1, t_dim, tanh):
 
 
 @pytest.mark.parametrize("b,n,dp1,t_dim,tanh", [
-    (262144, 16, 8, 16, False),  # the headline step: 547 row blocks
-    (4096, 784, 6, 10, True),    # layer 0: 26 row blocks
+    (262144, 16, 8, 16, False),  # the headline step: 256 row blocks
+    (4096, 784, 6, 10, True),    # layer 0: 128 row blocks (CUDA cores)
     (37, 10, 6, 10, True),       # one row block; dW stride 500
     (1000, 37, 8, 17, True),     # dW stride 4403, no multiple of 4
     (300, 16, 1, 10, True),      # dp1 = 1: colsum(g) alone
@@ -107,11 +115,11 @@ def test_one_call_step_equals_step_then_pass(cuda, b, n, dp1, t_dim, tanh):
     loss, dw = kan_train_step_fused(x, w2, dp1, y=y, loss="mse",
                                     apply_tanh=tanh)
     loss2, ws, _ = _step_pass(x, w2, dp1, y, "mse", tanh)
-    dw2 = fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=False)
+    dw2 = fused_bwd_partial_sum(ws, b, n, dp1, t_dim, step=True)
     torch.cuda.synchronize()
     assert torch.equal(loss, loss2) and torch.equal(dw, dw2)
-    assert torch.equal(fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim),
-                       dw)
+    assert torch.equal(
+        fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, step=True), dw)
     # the outputs own their memory: keeping them keeps no workspace
     assert loss.untyped_storage().nbytes() == 4
     assert dw.untyped_storage().nbytes() == 4 * dw.numel()
@@ -119,7 +127,7 @@ def test_one_call_step_equals_step_then_pass(cuda, b, n, dp1, t_dim, tanh):
 
 def test_kept_losses_and_grads_do_not_keep_the_workspace(cuda):
     """A loop that keeps each step's loss and dW on the card grows by those
-    alone: the headline step's workspace (547 row blocks, ≈ 3.9 MB) is
+    alone: the headline step's workspace (256 row blocks, ≈ 1.8 MB) is
     freed after each call."""
     x, w2, y = _inputs(5, 262144, 16, 8, 16, False, torch.float32, cuda)
     kan_train_step_fused(x, w2, 8, y=y, loss="mse")  # the library is built
@@ -169,3 +177,66 @@ def test_step_rejects_what_the_kernel_does_not_take(cuda):
         kan_train_step_fused(x, w2, 2)
     with pytest.raises(ValueError, match="'high' or 'default'"):
         kan_train_step_fused(x, w2, 3, precision="bf16")
+
+
+# phase 12a's shapes (chip_smoke.py): the headline; the flagship's layer 0
+# at B 1, 37, 64 and 4096; T 10 and 16; a bf16 x; dp1 1 and 2; in 1
+PHASE_12A = [
+    (262144, 16, 8, 16, False, torch.float32),
+    (262144, 16, 8, 16, False, torch.bfloat16),
+    *[(b, 784, 6, 10, True, torch.float32) for b in (1, 37, 64, 4096)],
+    (4096, 784, 6, 10, True, torch.bfloat16),
+    (4096, 16, 6, 10, True, torch.float32),
+    (37, 10, 6, 16, True, torch.float32),
+    (4096, 784, 1, 10, True, torch.float32),
+    (300, 16, 2, 10, True, torch.float32),
+    (1000, 1, 2, 16, False, torch.float32),
+    (1000, 1, 8, 10, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim,tanh,x_dtype", PHASE_12A)
+def test_step_kernel_at_phase_12a_shapes(cuda, b, n, dp1, t_dim, tanh,
+                                         x_dtype):
+    """K5 (the tensor-core kernel or the CUDA-core one, as the rule picks)
+    against the plain version, twice with the same bits, and its dW equal
+    bit for bit to the plain fixed-order sum over its own workspace."""
+    x, w2, y = _inputs(b + n + dp1, b, n, dp1, t_dim, tanh, x_dtype, cuda)
+    for loss in ("sumsq", "mse"):
+        args = (x, w2, dp1, y if loss == "mse" else None, loss, tanh)
+        got = kan_train_step_fused(*args)
+        _assert_step_close(got, kan_train_step_fused_reference(*args))
+        again = kan_train_step_fused(*args)
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+        _, ws, _ = _step_pass(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(
+            fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, step=True),
+            got[1])
+
+
+def test_layout_entries_equal_their_python_mirrors(cuda):
+    """The C entries that fix K5's and K2's row blocks, the step's path,
+    its workspace and the pass's segments equal the plain functions the
+    CPU tests reach, over a sweep of shapes."""
+    lib = load_library()
+    for b in (1, 37, 64, 100, 4096, 262144):
+        for n in (1, 10, 16, 37, 300, 784):
+            for dp1 in (1, 2, 6, 8, 32):
+                for t_dim in (1, 10, 16, 17, 33, 64):
+                    tc, _, nrb = fused_step_layout(b, n, dp1, t_dim)
+                    assert lib.qkan_fused_step_tensor_cores(
+                        n, dp1, t_dim) == int(tc) == int(
+                            fused_step_tensor_cores(n, dp1, t_dim))
+                    assert lib.qkan_fused_step_row_blocks(
+                        b, n, dp1, t_dim) == nrb
+                    assert lib.qkan_fused_step_workspace_bytes(
+                        b, n, dp1, t_dim) == 4 * nrb * (
+                            (dp1 - 1) * n * t_dim + t_dim + 1)
+                    assert lib.qkan_fused_bwd_row_blocks(
+                        b, n, dp1, t_dim) == fused_bwd_layout(
+                            b, n, dp1, t_dim)[1]
+    for nblk in (1, 2, 26, 32, 33, 256, 264, 547, 1000):
+        for per in (0, 1, 3, 1792, 2048, 39200, 47040):
+            assert lib.qkan_partial_sum_segments(nblk, per) == \
+                partial_sum_segments(nblk, per)

@@ -1,8 +1,10 @@
 """The fused single-layer train step of the torch port (its plain version,
 which CPU tensors take) against the JAX package's
 ``kan_train_step_fused`` in Pallas interpret mode, on the same numpy
-inputs; the fold ``weights_to_m3``; and the headline QKAN-layer step
-(N = K = 16, degree 7, no tanh, 'sumsq') at a small batch.
+inputs; the fold ``weights_to_m3``; the headline QKAN-layer step
+(N = K = 16, degree 7, no tanh, 'sumsq') at a small batch; and K5's own
+layout of row blocks (``fused_step_layout``, the plain mirror of the C
+layout) with the fixed-order dW sum over a workspace built in it.
 
 Bars:
 - float32 x: both sides build the same basis and take f32 products; only
@@ -38,6 +40,14 @@ from qkan_implementation_tpu_torch.ops import (
     kan_train_step_fused,
     kan_train_step_fused_reference,
     qkan_layer_forward_batched,
+)
+from qkan_implementation_tpu_torch.ops.fused_layer import (
+    fused_bwd_fixed_order_reference,
+    fused_bwd_layout,
+    fused_bwd_workspace_partials,
+    fused_step_layout,
+    fused_step_tensor_cores,
+    partial_sum_segments,
 )
 
 # tests/test_fused_layer.py::test_fused_train_step_matches_jax_grad
@@ -260,3 +270,102 @@ def test_headline_steps_match_jax():
         jnp.asarray(w), QN, QK)).reshape(-1, QK)).max()
     err = np.abs(w2_t.numpy() - w2_j).max()
     assert err <= 1e-6 * np.abs(w2_j).max() and moved > 100 * err
+
+
+# -- K5's own layout (the mirror the CPU reaches) ---------------------------
+
+LAYOUT_SHAPES = [
+    # (B, in, dp1, T): the headline, narrow and ragged tensor-core shapes,
+    # the flagship's layer 0 and dp1 = 1 (the CUDA-core kernel, 32 MB layout)
+    (262144, 16, 8, 16), (512, 16, 8, 16), (300, 16, 8, 16),
+    (37, 10, 6, 10), (1, 16, 8, 16), (4096, 16, 8, 64), (1000, 1, 2, 1),
+    (4096, 784, 6, 10), (64, 784, 6, 10), (300, 16, 1, 10),
+]
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim", LAYOUT_SHAPES)
+def test_step_layout_mirror(b, n, dp1, t_dim):
+    """Row blocks from the sizes alone, every row in exactly one block,
+    the dW partials under the budget (or one block: 4 MB on the tensor
+    cores, 32 MB on the CUDA-core path), and the pass's segments from
+    ``partial_sum_segments``."""
+    tc, rows, nrb = fused_step_layout(b, n, dp1, t_dim)
+    assert fused_step_layout(b, n, dp1, t_dim) == (tc, rows, nrb)
+    assert tc == fused_step_tensor_cores(n, dp1, t_dim)
+    assert rows % (64 if tc else 32) == 0
+    assert (nrb - 1) * rows < b <= nrb * rows
+    per_rb = 4 * (dp1 - 1) * n * t_dim
+    budget = (4 if tc else 32) << 20
+    assert nrb == 1 or nrb * per_rb <= budget
+    if tc:
+        assert nrb <= 264
+    else:
+        assert (rows, nrb) == fused_bwd_layout(b, n, dp1, t_dim, budget)
+    seg = partial_sum_segments(nrb, (dp1 - 1) * n * t_dim)
+    assert 1 <= seg <= min(32, nrb)
+    assert seg == 1 or nrb > 32
+
+
+def test_step_layout_rule_at_the_main_shapes():
+    # the headline step runs on the tensor cores in 256 blocks of 1024
+    # rows; the flagship's layer 0 and dp1 = 1 keep the CUDA-core kernel,
+    # in 128 blocks of 32 rows at B 4096 (K2's 4 MB layout has 26)
+    assert fused_step_layout(262144, 16, 8, 16) == (True, 1024, 256)
+    assert fused_step_layout(4096, 784, 6, 10) == (False, 32, 128)
+    assert fused_bwd_layout(4096, 784, 6, 10) == (160, 26)
+    assert not fused_step_tensor_cores(16, 1, 10)
+
+
+def _step_workspace(x, w2, dp1, tanh):
+    """The workspace a train step ('sumsq') fills on the card, built from
+    the plain step on each row block of K5's layout: the dW_d partials,
+    the colsum(g) partials, one loss partial a block."""
+    b, n = x.shape
+    t_dim = w2.shape[1]
+    _, rows, nrb = fused_step_layout(b, n, dp1, t_dim)
+    parts, gparts, losses = [], [], []
+    for r0 in range(0, b, rows):
+        loss, dw = kan_train_step_fused_reference(x[r0:r0 + rows], w2, dp1,
+                                                  apply_tanh=tanh)
+        parts.append(dw[n:].reshape(-1))
+        gparts.append(dw[0])
+        losses.append(loss.reshape(1))
+    assert len(parts) == nrb
+    part = torch.stack(parts)
+    return torch.cat([part.reshape(-1), torch.cat(gparts),
+                      torch.cat(losses)]), part
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim,tanh", [
+    (512, 16, 8, 16, True),    # JAX's step shape: 8 blocks of 64 rows
+    (300, 16, 8, 16, False),   # a ragged last block
+    (100, 784, 6, 10, True),   # layer 0: the CUDA-core path, 4 of 32
+])
+def test_fixed_order_sum_over_the_step_layout(b, n, dp1, t_dim, tanh):
+    """``fused_bwd_fixed_order_reference`` on a workspace in K5's layout
+    against ``part.sum(0)`` (twice the bar of any f32 order against
+    float64: 2 nblk 2^-24 sum|part|) and against the whole batch's plain
+    step (rtol 1e-5 of max|dW|); at JAX's shape, against the JAX step in
+    interpret mode (its own bars)."""
+    x, w2, y = _inputs(b=b, n=n, dp1=dp1, t_dim=t_dim, seed=b + n)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w2)
+    ws, part = _step_workspace(xt, wt, dp1, tanh)
+    dw = fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, step=True)
+    assert dw.shape == wt.shape and dw.dtype == torch.float32
+    nblk = part.shape[0]
+    bar = 2 * nblk * 2.0**-24 * part.abs().sum(dim=0)
+    assert bool(((dw[n:].reshape(-1) - part.sum(dim=0)).abs() <= bar).all())
+    whole = kan_train_step_fused_reference(xt, wt, dp1, apply_tanh=tanh)[1]
+    err = float((dw - whole).abs().max())
+    assert err <= 1e-5 * float(whole.abs().max())
+    # the views agree with the mirror's layout
+    p2, g2 = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim, step=True)
+    assert torch.equal(p2, part) and g2.shape == (nblk, t_dim)
+    if (b, n, dp1, t_dim) == (512, N_IN, DP1, T):
+        x = _tanh_agreeing(x) if tanh else x
+        ws, _ = _step_workspace(torch.from_numpy(x), wt, dp1, tanh)
+        got = fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, step=True)
+        want_l, want_dw = _jax_step(x, w2, y, "sumsq", tanh)
+        rel = (np.linalg.norm(got.double().numpy() - want_dw)
+               / np.linalg.norm(want_dw))
+        assert rel < 1e-5, rel

@@ -195,7 +195,8 @@ def dw_case(rng, b, n, dp1, t_dim, want_dx, step=False):
         g = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
         ws = _bwd_pass("qkan_fused_dw_bwd", x, w2, g.cuda(), dp1, True, (0,),
                        want_dx)[1]
-    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim)
+    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim,
+                                               step=step)
     return part, gpart, (n, dp1, t_dim)
 
 
