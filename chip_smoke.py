@@ -12,7 +12,10 @@ Phases, each reported on its own lines:
    (one process per source, started together) and report ptxas's
    registers and spills;
 3. kernel vs plain: the degree-wise forward kernel (K1) against its plain
-   torch version on the card, at the flagship layer shapes;
+   torch version on the card, at the flagship layer shapes; then (3b) K1
+   ('high' and 'bf16') and the v1 forward K3 on a bf16 x at every (in, T)
+   of LAYER_SHAPES and B 64 and 4096, twice with the same bits, with the
+   route (tensor cores or CUDA cores) and feature splits of each;
 4. times: K1 and plain, median of CUDA-event-timed calls at B=4096;
 5. the serving slice: a flagship-width [784,32,16,16,10] checkpoint with
    random weights is loaded, put behind ``BatchedPredictor`` and the HTTP
@@ -23,11 +26,15 @@ Phases, each reported on its own lines:
    B in {1, 37, 64, 4096}, in in {784, 10}, every precision, tanh on and
    off, f32 and bf16 x, with bf16 controls, and the dW pass over each real
    workspace equal bit for bit to its plain version in its own order
-   (``fused_bwd_fixed_order_reference``); then every kernel's time, plain
-   time and bound at the flagship shapes, and the dW pass at layer 0, B =
-   4096 (26 partials) and 64 (2), held bit for bit to that plain version
-   twice, then timed: event ms, device µs, plain ms and bound beside
-   ``torch.sum(part, dim=0)``'s event ms and device µs;
+   (``fused_bwd_fixed_order_reference``); (6c) widths past one launch
+   (K1-K5 at x[256, 64], dp1 34, T 96; K12-K14 at D+1 8 / N 64 / K 128
+   and at D+1 40) against their plain versions, twice with the same bits;
+   then (6b) every fused-layer kernel's event ms, device µs, plain ms and
+   bound (FP32, and 3xTF32 where it runs on the tensor cores) at every
+   (in, T) of LAYER_SHAPES and B 64 and 4096, and the dW pass at layer
+   0, B = 4096 (26 partials) and 64 (2), held bit for bit to that plain
+   version twice, then timed: event ms, device µs, plain ms and bound
+   beside ``torch.sum(part, dim=0)``'s event ms and device µs;
 7. the training slice, at the flagship width from one random start on
    synthetic data (4096 rows, labels from a linear teacher), with
    backend 'fused_dw', 'fused' and 'xla' (FP32):
@@ -48,7 +55,7 @@ Phases, each reported on its own lines:
       gaps are printed beside the floor's.
 
 8. device time: ``torch.profiler`` over each kernel at the flagship
-   shapes (the kernel's own time, without the wrapper's host time that
+   checkpoint's shapes (the kernel's own time, without the wrapper's host time that
    the CUDA-event times of phases 4 and 6 carry) and over 10 train steps
    per backend at batch 64 (device busy share, time by kernel).
 9. statevector kernels vs plain: K6 (through ``ucry_msb_cs_pallas_pair``
@@ -104,7 +111,8 @@ Phases, each reported on its own lines:
       dp1 8, T 16, no tanh, 'sumsq'; f32 and bf16 x: the tensor-core
       kernel), the flagship layer 0 (B 1, 64 and 4096, in 784, dp1 6, T
       10, tanh, 'mse' and 'sumsq': the CUDA-core kernel, by the rule of
-      ``fused_step_tensor_cores``), a ragged narrow case (B 37, in 10:
+      ``fused_step_tensor_cores``), layer 0 at T 32 (B 64 and 4096,
+      'mse'), a ragged narrow case (B 37, in 10:
       tensor cores), a bf16 x at layer 0 and dp1 = 1.  dW within the
       BARS, the loss within rtol 1e-4;
    b. the headline QKAN-layer step at full width (N = K = 16, degree 7,
@@ -122,8 +130,9 @@ Phases, each reported on its own lines:
       done by the K3 + K4 pair (``kan_layer_fused`` and its backward,
       ``sum(out**2)`` by torch) and one done as torch ops (autograd
       through ``qkan_layer_forward_batched``), at the headline shape and
-      at layer 0 with B = 4096 and 'mse' (there the torch-ops step is
-      autograd through ``kan_layer_fused_reference``); and the device
+      at layer 0 with B = 4096 and 'mse', T 10 and 32 (there the
+      torch-ops step is autograd through ``kan_layer_fused_reference``);
+      and the device
       time of each of the three by kernel, from ``torch.profiler`` over
       10 calls, K5's split into the step kernel, the dW pass and the loss
       sum; the dW pass over the headline step's workspace (256 partials,
@@ -300,6 +309,17 @@ SHORT_ROWS = 2 * TRAIN_BATCH  # phase 7b: 2 epochs of 2 steps
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # the tensor cores, dense
+# (in, T) of the fused-layer kernels' checked and timed shapes (phases 3b,
+# 6b, 8), each at B 64 and 4096: the flagship checkpoint's own layers (a
+# FixedKAN layer maps [B, in] to [B, target_dim]: 784 -> 10, then 10 ->
+# 10), and the four layers of a [784, 32, 16, 16, 10] whose layers map to
+# the next width
+LAYER_SHAPES = [(784, 10), (10, 10), (784, 32), (32, 16), (16, 16), (16, 10)]
+LAYER_BATCHES = (64, 4096)
+# widths past one launch (phase 6c): x[256, 64] at dp1 34, T 96 for K1-K5;
+# the M3 layer at D+1 8 / N 64 / K 128 and at D+1 40 (N 16, K 16)
+WIDE_LAYER = (256, 64, 34, 96)
+WIDE_M3 = [(512, 64, 128, 8), (512, 16, 16, 40)]
 
 # (name in the kernels line, counter owner, counter attribute)
 COUNTERS = [
@@ -391,11 +411,12 @@ def median_ms(fn, reps: int = 50, warm: int = 5) -> float:
     return float(np.median(times))
 
 
-def layer_inputs(rng, b, n, tanh, precision, device):
+def layer_inputs(rng, b, n, tanh, precision, device, t_dim=T, dp1=DP1):
     lo, hi = (-2.0, 2.0) if tanh else (-0.95, 0.95)
     x = torch.from_numpy(rng.uniform(lo, hi, (b, n)).astype(np.float32))
     w2 = torch.from_numpy(
-        rng.normal(0, 1 / np.sqrt(DP1 * n), (DP1 * n, T)).astype(np.float32)
+        rng.normal(0, 1 / np.sqrt(dp1 * n), (dp1 * n, t_dim))
+        .astype(np.float32)
     )
     if precision == "bf16":
         x = x.to(torch.bfloat16)
@@ -443,6 +464,43 @@ def check_kernel(device) -> float:
                     if precision == "high":
                         worst_high = max(worst_high, err)
     return worst_high
+
+
+def check_forward_shapes(device) -> float:
+    """Phase 3b: K1 ('high' f32 x, 'bf16') and K3 (a bf16 x: all of w2
+    rounded) against their plain versions at every (in, T) of
+    LAYER_SHAPES and B in LAYER_BATCHES, twice with the same bits, the
+    route and feature splits of each (``fused_fwd_plan``) logged; returns
+    the worst 'high' error."""
+    rng = np.random.default_rng(SEED + 19)
+    worst = 0.0
+    for n, t_dim in LAYER_SHAPES:
+        for b in LAYER_BATCHES:
+            x, w2 = layer_inputs(rng, b, n, True, "high", device, t_dim)
+            xb = x.to(torch.bfloat16)
+            tc, splits, _ = fl.fused_fwd_plan(b, n, DP1, t_dim)
+            where = dict(shape=f"x[{b},{n}]@w2[{DP1 * n},{t_dim}]",
+                         tensor_cores=tc, splits=splits)
+            for name, call, ref, precision in (
+                    ("fused_dw_fwd", lambda: kan_layer_fused_dw(x, w2, DP1),
+                     lambda: kan_layer_fused_dw_reference(x, w2, DP1),
+                     "high"),
+                    ("fused_dw_fwd", lambda: kan_layer_fused_dw(
+                        x, w2, DP1, True, "bf16"),
+                     lambda: kan_layer_fused_dw_reference(
+                         x, w2, DP1, True, "bf16"), "bf16"),
+                    ("fused_fwd", lambda: kan_layer_fused(xb, w2, DP1),
+                     lambda: kan_layer_fused_reference(xb, w2, DP1),
+                     "high")):
+                got, again = call(), call()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} {where}: two runs differ")
+                err, _ = held(name, got, ref(), precision, **where,
+                              x="bf16" if name == "fused_fwd" else "f32")
+                if name == "fused_dw_fwd" and precision == "high":
+                    worst = max(worst, err)
+    return worst
 
 
 def time_kernel(device, card: str) -> dict:
@@ -500,6 +558,15 @@ def post(url: str, body: bytes):
         return e.code, json.loads(e.read())
 
 
+def fwd_passes(rows: int) -> int:
+    """Launches of the fixed-order pass that one flagship forward of
+    ``rows`` rows makes: one a layer whose forward splits its features
+    (``fused_fwd_plan``; the checkpoint's layers map 784 -> T, then T ->
+    T)."""
+    ins = [SHAPE[0]] + [T] * (len(SHAPE) - 2)
+    return sum(fl.fused_fwd_plan(rows, n, DP1, T)[1] > 1 for n in ins)
+
+
 def run_slice(device, workdir: Path) -> tuple[dict, dict]:
     """Phase 5: checkpoint -> FixedKAN -> BatchedPredictor -> HTTP."""
     path = workdir / "flagship_random.npz"
@@ -540,6 +607,7 @@ def run_slice(device, workdir: Path) -> tuple[dict, dict]:
     forwards = 0
     predictor.warmup()
     forwards += len(predictor.buckets)
+    passes = sum(fwd_passes(b) for b in predictor.buckets)
     server, thread = serve(predictor, port=0, background=True)
     try:
         host, port = server.server_address
@@ -554,6 +622,7 @@ def run_slice(device, workdir: Path) -> tuple[dict, dict]:
                 base + "/predict", json.dumps({"inputs": xs[n].tolist()}).encode()
             )
             forwards += 1
+            passes += fwd_passes(predictor._bucket_for(n))
             if code != 200:
                 raise AssertionError(f"/predict {n} rows: HTTP {code} {body}")
             answers[n] = np.asarray(body["outputs"], dtype=np.float32)
@@ -565,6 +634,7 @@ def run_slice(device, workdir: Path) -> tuple[dict, dict]:
         for _ in range(steady):
             last = predictor.predict(xs[4096])
         forwards += steady
+        passes += (1 + steady) * fwd_passes(4096)
     finally:
         server.shutdown()
         server.server_close()
@@ -572,6 +642,7 @@ def run_slice(device, workdir: Path) -> tuple[dict, dict]:
     counts = read_counts()
     expected = dict.fromkeys(counts, 0)
     expected["fused_dw_fwd"] = (len(SHAPE) - 1) * forwards
+    expected["fused_bwd_partial_sum"] = passes
     log("slice", forwards=forwards, launches=counts)
     if counts != expected:
         raise AssertionError(f"kernel launches {counts} != {expected}")
@@ -722,6 +793,84 @@ def check_backward(device) -> dict:
     return worst
 
 
+def check_wide(device) -> dict:
+    """Phase 6c: widths past one launch, each kernel against its plain
+    version at phase 3's bars (K12-K14 at phase 13's), twice with the same
+    bits: K1, K3, K2 and K4 (dx and dW) and K5 ('sumsq' and 'mse') at
+    x[256, 64], dp1 34, T 96; K12, K13 and K14 at D+1 8 / N 64 / K 128 and
+    at D+1 40.  Returns the worst f32 error of each kernel."""
+    rng = np.random.default_rng(SEED + 20)
+    worst = {}
+    b, n, dp1, t_dim = WIDE_LAYER
+    where = dict(shape=f"x[{b},{n}] dp1 {dp1} T {t_dim}")
+
+    def twice(name, call, ref, precision="high"):
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        for a, c in zip(got, again):
+            if not (a is None and c is None or torch.equal(a, c)):
+                raise AssertionError(f"{name} {where}: two runs differ")
+        for part, a, w in zip(("", ".dw"), got, ref()):
+            if a is not None:
+                err, _ = held(name + part, a, w, precision, **where)
+                worst[name] = max(worst.get(name, 0.0), err)
+
+    for x_dtype in (torch.float32, torch.bfloat16):
+        x, w2 = layer_inputs(rng, b, n, True, "high", device, t_dim, dp1)
+        x = x.to(x_dtype)
+        g = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
+        g = g.to(device)
+        y = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
+        y = y.to(device)
+        where["x"] = str(x_dtype).split(".")[-1]
+        twice("fused_dw_fwd", lambda: (kan_layer_fused_dw(x, w2, dp1),),
+              lambda: (kan_layer_fused_dw_reference(x, w2, dp1),))
+        twice("fused_fwd", lambda: (kan_layer_fused(x, w2, dp1),),
+              lambda: (kan_layer_fused_reference(x, w2, dp1),))
+        twice("fused_dw_bwd", lambda: _fused_dw_bwd(x, w2, g, dp1, True,
+                                                    "high"),
+              lambda: kan_layer_fused_dw_bwd_reference(x, w2, g, dp1))
+        twice("fused_bwd", lambda: _fused_bwd(x, w2, g, dp1, True, "high"),
+              lambda: kan_layer_fused_bwd_reference(x, w2, g, dp1))
+        for loss in ("sumsq", "mse"):
+            args = (x, w2, dp1, y if loss == "mse" else None, loss)
+            got = kan_train_step_fused(*args)
+            again = kan_train_step_fused(*args)
+            want = kan_train_step_fused_reference(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                raise AssertionError(f"fused_step {where}: two runs differ")
+            err, _ = held("fused_step.dw", got[1], want[1], "high", **where,
+                          loss=loss)
+            rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+            if not rel <= STEP_RTOL:
+                raise AssertionError(f"fused_step loss {where}: {rel}")
+            worst["fused_step"] = max(worst.get("fused_step", 0.0), err)
+    for mb, mn, mk, mdp1 in WIDE_M3:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.uniform(-1, 1, (mb, mn))
+                                 .astype(np.float32)).to(device, x_dtype)
+            m3 = torch.from_numpy(rng.normal(
+                0, 1 / np.sqrt(mdp1 * mn), (mdp1, mn, mk)).astype(np.float32))
+            m3 = m3.to(device)
+            gm = torch.from_numpy(rng.normal(size=(mb, mk))
+                                  .astype(np.float32)).to(device, x_dtype)
+            where = dict(shape=f"x[{mb},{mn}] m3[{mdp1},{mn},{mk}]",
+                         x=str(x_dtype).split(".")[-1],
+                         slices={k: pl3.m3_slices(mn, mdp1, mk, k)
+                                 for k in (0, 1, 2)})
+            want_dx, want_dm = qkan_layer_fused_bwd_reference(x, m3, gm)
+            for name, call, want in (
+                    ("m3_fwd", lambda: (pl3._launch_fwd(x, m3),),
+                     (qkan_layer_fused_reference(x, m3),)),
+                    ("m3_bwd", lambda: pl3._launch_bwd(x, m3, gm, True),
+                     (want_dx, want_dm)),
+                    ("m3_bwd_dw", lambda: pl3._launch_bwd(x, m3, gm, False),
+                     (None, want_dm))):
+                twice(name, call, lambda want=want: want)
+    return worst
+
+
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     """(least ms, what bounds it) on one H100 at its published peaks."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -729,14 +878,14 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def step_bound(bytes_moved: float, flops: float, n: int, dp1: int,
-               t_dim: int) -> tuple:
+def unit_bound(bytes_moved: float, flops: float,
+               tensor_cores: bool) -> tuple:
     """(least ms, what bounds it, the units, the FP32 CUDA-core bound ms)
-    of a train step on the units its kernel uses: on the tensor-core path
-    (``fused_step_tensor_cores``) the flops as three TF32 passes (3xTF32)
-    over 495 TFLOP/s; else, on the CUDA-core kernel, the FP32 rate."""
+    on the units the kernel uses: on the tensor cores the flops as three
+    TF32 passes (3xTF32) over 495 TFLOP/s; on the CUDA cores the FP32
+    rate."""
     fp32_ms, fp32_by = bound(bytes_moved, flops)
-    if not fl.fused_step_tensor_cores(n, dp1, t_dim):
+    if not tensor_cores:
         return fp32_ms, fp32_by, "FP32 CUDA cores", fp32_ms
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = 3.0 * flops / TF32_FLOP_PER_S * 1e3
@@ -744,62 +893,89 @@ def step_bound(bytes_moved: float, flops: float, n: int, dp1: int,
     return ms, by, "tensor cores, 3xTF32", fp32_ms
 
 
-def kernel_cases(rng, device, b: int, n: int) -> dict:
-    """Every kernel at one flagship shape, 'high', f32 x, tanh on: name ->
-    (kernel call, plain call, one PyTorch call or None, (bound ms, what
-    bounds it)).  Phases 6b and 8 time the same calls."""
-    x, w2 = layer_inputs(rng, b, n, True, "high", device)
-    g = torch.from_numpy(rng.normal(size=(b, T)).astype(np.float32)).to(device)
-    mm = 2.0 * b * n * (DP1 - 1) * T  # flops of one contraction
+def step_bound(bytes_moved: float, flops: float, n: int, dp1: int,
+               t_dim: int) -> tuple:
+    """``unit_bound`` of a train step: its route is
+    ``fused_step_tensor_cores``."""
+    return unit_bound(bytes_moved, flops,
+                      fl.fused_step_tensor_cores(n, dp1, t_dim))
+
+
+def kernel_cases(rng, device, b: int, n: int, t_dim: int = T) -> dict:
+    """Every fused-layer kernel at one shape, 'high', f32 x, tanh on: name
+    -> (kernel call, plain call, one PyTorch call or None, (bound ms, what
+    bounds it) on the units the kernel uses (``unit_bound``: a forward
+    that ``fused_fwd_plan`` sends to the tensor cores is bound as
+    3xTF32), the FP32 CUDA-core bound ms beside it where that differs,
+    else None).  Phases 6b and 8 time the same calls; each call is one
+    library call (a forward with its feature splits' pass; a backward
+    without its dW pass, which phase 6b times alone)."""
+    x, w2 = layer_inputs(rng, b, n, True, "high", device, t_dim)
+    g = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
+    g = g.to(device)
+    mm = 2.0 * b * n * (DP1 - 1) * t_dim  # flops of one contraction
     # bytes of x [B, in], w2 [dp1*in, T] and one [B, T] (g or out)
-    x_b, w_b, bt_b = 4.0 * b * n, 4.0 * DP1 * n * T, 4.0 * b * T
+    x_b, w_b, bt_b = 4.0 * b * n, 4.0 * DP1 * n * t_dim, 4.0 * b * t_dim
+    on_tc = fl.fused_fwd_plan(b, n, DP1, t_dim)[0]
+    f_ms, f_by, _, f_fp32 = unit_bound(x_b + w_b + bt_b, mm, on_tc)
+    fwd = ((f_ms, f_by), f_fp32 if on_tc else None)
     return {
         "fused_dw_fwd": (
             lambda: kan_layer_fused_dw(x, w2, DP1),
             lambda: kan_layer_fused_dw_reference(x, w2, DP1),
-            None, bound(x_b + w_b + bt_b, mm),
+            None, *fwd,
         ),
         "fused_fwd": (
             lambda: kan_layer_fused(x, w2, DP1),
             lambda: kan_layer_fused_reference(x, w2, DP1),
-            None, bound(x_b + w_b + bt_b, mm),
+            None, *fwd,
         ),
         "fused_dw_bwd": (
             lambda: _bwd_pass("qkan_fused_dw_bwd", x, w2, g, DP1, True, (0,),
                               True),
             lambda: kan_layer_fused_dw_bwd_reference(x, w2, g, DP1),
-            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm),
+            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm), None,
         ),
         "fused_bwd": (
             lambda: _bwd_pass("qkan_fused_bwd", x, w2, g, DP1, True, (), True),
             lambda: kan_layer_fused_bwd_reference(x, w2, g, DP1),
-            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm),
+            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm), None,
         ),
     }
 
 
 def time_all(device, card: str) -> dict:
-    """Phase 6b: every kernel, its plain version and its bound, 'high',
-    f32 x, tanh on, at the flagship shapes: layer 0 (in 784) and layers
-    1-3 (in 10), at B = 4096 and B = 64.  Times are CUDA-event medians of
+    """Phase 6b: every fused-layer kernel, its plain version and its
+    bound, 'high', f32 x, tanh on, at every (in, T) of LAYER_SHAPES and B
+    in LAYER_BATCHES, with its device µs a call (``torch.profiler``, every
+    kernel of the library call) and, on the tensor cores, the FP32
+    CUDA-core bound beside the 3xTF32 one.  Event times are CUDA-event medians of
     single calls, wrapper included."""
     rng = np.random.default_rng(SEED + 6)
     table = {}
-    for n in (784, 10):
-        for b in (4096, 64):
-            cases = kernel_cases(rng, device, b, n)
-            for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
-                k_ms = median_ms(kern)
-                p_ms = median_ms(plain)
+    for n, t_dim in LAYER_SHAPES:
+        for b in LAYER_BATCHES:
+            cases = kernel_cases(rng, device, b, n, t_dim)
+            for name, (kern, plain, lib, (b_ms, b_by), fp32_ms) in \
+                    cases.items():
+                k_ms = median_ms(kern, reps=30)
+                p_ms = median_ms(plain, reps=10, warm=2)
                 l_ms = median_ms(lib) if lib is not None else None
-                table[(name, n, b)] = dict(
+                kernels = device_per_call(kern)
+                dev = sum(us for _, us in kernels) if kernels else None
+                table[(name, n, t_dim, b)] = dict(
                     ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
-                    bound_by=b_by,
+                    bound_by=b_by, bound_fp32_ms=fp32_ms, device_us=dev,
+                    kernels={k[:48]: us for k, us in kernels},
                 )
-                log("time", kernel=name, shape=f"x[{b},{n}]",
-                    kernel_ms=f"{k_ms:.4f}", plain_ms=f"{p_ms:.4f}",
+                log("time", kernel=name, shape=f"x[{b},{n}] T {t_dim}",
+                    kernel_ms=f"{k_ms:.4f}",
+                    device_us="not measured" if dev is None else f"{dev:.3f}",
+                    plain_ms=f"{p_ms:.4f}",
                     library_ms="null" if l_ms is None else f"{l_ms:.4f}",
                     bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
+                    bound_fp32_us=("n/a" if fp32_ms is None
+                                   else f"{fp32_ms * 1e3:.3f}"),
                     card=f"'{card}'")
     return table
 
@@ -1039,14 +1215,17 @@ def run_training(device, workdir: Path) -> tuple[dict, dict]:
             raise AssertionError(f"{backend}: loss did not fall {losses}")
         expected = dict.fromkeys(counts, 0)
         layers = len(SHAPE) - 1
+        # a backward's dW pass a layer, and the forward's pass where it
+        # splits the features (layer 0 at batch 64)
+        passes = steps * (layers + fwd_passes(TRAIN_BATCH))
         if backend == "fused_dw":
             expected.update(fused_dw_fwd=layers * steps,
                             fused_dw_bwd=layers * steps,
-                            fused_bwd_partial_sum=layers * steps)
+                            fused_bwd_partial_sum=passes)
         elif backend == "fused":
             expected.update(fused_fwd=layers * steps,
                             fused_bwd=layers * steps,
-                            fused_bwd_partial_sum=layers * steps)
+                            fused_bwd_partial_sum=passes)
         if counts != expected:
             raise AssertionError(f"{backend}: launches {counts} != {expected}")
         runs[backend] = (np.asarray(losses), model)
@@ -1109,6 +1288,7 @@ def run_training(device, workdir: Path) -> tuple[dict, dict]:
 
 
 KERNEL_NAMES = {
+    # both forward kernels: fused_dw_fwd_kernel and fused_dw_fwd_kernel_tc
     "fused_dw_fwd": "fused_dw_fwd_kernel",
     "fused_fwd": "fused_dw_fwd_kernel",  # K3 shares K1's device code
     "fused_dw_bwd": "fused_dw_bwd_kernel",
@@ -1135,9 +1315,10 @@ def profile_device_time(device, workdir: Path, card: str) -> None:
 
     rng = np.random.default_rng(SEED + 8)
     calls = 20
-    for n in (784, 10):
-        for b in (4096, 64):
-            for name, (fn, *_) in kernel_cases(rng, device, b, n).items():
+    for n, t_dim in ((784, 10), (10, 10)):  # the flagship's own layers
+        for b in LAYER_BATCHES:
+            for name, (fn, *_) in kernel_cases(rng, device, b, n,
+                                               t_dim).items():
                 fn()
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
@@ -1147,7 +1328,7 @@ def profile_device_time(device, workdir: Path, card: str) -> None:
                     torch.cuda.synchronize()
                 us = [u / c for k, u, c in device_events(prof)
                       if KERNEL_NAMES[name] in k]
-                log("profile", kernel=name, shape=f"x[{b},{n}]",
+                log("profile", kernel=name, shape=f"x[{b},{n}] T {t_dim}",
                     device_us="not measured" if not us else f"{max(us):.3f}",
                     card=f"'{card}'")
 
@@ -1698,11 +1879,11 @@ def step_cases(device) -> list:
              ("headline_bf16_x", (hx.to(torch.bfloat16), h_w2, HDEG + 1,
                                   None, "sumsq", False))]
 
-    def add(name, b, n, dp1, loss, x_dtype=torch.float32):
+    def add(name, b, n, dp1, loss, x_dtype=torch.float32, t_dim=T):
         x = torch.from_numpy(rng.uniform(-2, 2, (b, n)).astype(np.float32))
         w2 = torch.from_numpy(rng.normal(
-            0, 1 / np.sqrt(dp1 * n), (dp1 * n, T)).astype(np.float32))
-        y = torch.from_numpy(rng.normal(size=(b, T)).astype(np.float32))
+            0, 1 / np.sqrt(dp1 * n), (dp1 * n, t_dim)).astype(np.float32))
+        y = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
         cases.append((name, (x.to(device, x_dtype), w2.to(device),
                              dp1, y.to(device) if loss == "mse" else None,
                              loss, True)))
@@ -1710,6 +1891,10 @@ def step_cases(device) -> list:
     for b in (1, 64, 4096):
         for loss in ("mse", "sumsq"):
             add(f"layer0_B{b}_{loss}", b, 784, DP1, loss)
+    # a target of 32: layer 0 of a FixedKAN [784, 32, ...] mapping to the
+    # next width
+    for b in (64, 4096):
+        add(f"layer0_T32_B{b}_mse", b, 784, DP1, "mse", t_dim=32)
     for loss in ("mse", "sumsq"):
         add(f"ragged_B37_in10_{loss}", 37, 10, DP1, loss)
     add("layer0_B4096_mse_bf16_x", 4096, 784, DP1, "mse", torch.bfloat16)
@@ -1862,6 +2047,30 @@ def step_timing_cases(device) -> dict:
         pair_layer0, torch_layer0,
         step_bound(4.0 * (b * n + b * T + 2 * DP1 * n * T + 1),
                    2 * 2.0 * b * n * (DP1 - 1) * T, n, DP1, T),
+    )
+
+    # the same at T 32
+    t32 = 32
+    x32, w32 = layer_inputs(rng, b, n, True, "high", device, t32)
+    y32 = torch.from_numpy(rng.normal(size=(b, t32)).astype(np.float32))
+    y32 = y32.to(device)
+    w32_leaf = w32.clone().requires_grad_()
+
+    def pair_t32():
+        out = kan_layer_fused(x32, w32_leaf, DP1)
+        return torch.autograd.grad(torch.mean((out - y32) ** 2), [w32_leaf])
+
+    def torch_t32():
+        out = kan_layer_fused_reference(x32, w32_leaf, DP1)
+        return torch.autograd.grad(torch.mean((out - y32) ** 2), [w32_leaf])
+
+    cases["layer0_T32_B4096_mse"] = (
+        lambda: kan_train_step_fused(x32, w32, DP1, y=y32, loss="mse"),
+        lambda: kan_train_step_fused_reference(x32, w32, DP1, y=y32,
+                                               loss="mse"),
+        pair_t32, torch_t32,
+        step_bound(4.0 * (b * n + b * t32 + 2 * DP1 * n * t32 + 1),
+                   2 * 2.0 * b * n * (DP1 - 1) * t32, n, DP1, t32),
     )
     return cases
 
@@ -2730,11 +2939,14 @@ def main() -> int:
         max_registers=max(regs), kernels_spilling=len(spills))
 
     errs = {"fused_dw_fwd": check_kernel(device)}
+    errs["fused_dw_fwd"] = max(errs["fused_dw_fwd"],
+                               check_forward_shapes(device))
     time_kernel(device, smi)
     paths = {}
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"], _ = run_slice(device, Path(tmp))
         errs.update(check_backward(device))
+        wide_errs = check_wide(device)
         table = time_all(device, smi)
         pass_table = time_passes(pass_cases(device, "dw"), smi)
         train_paths, step_ms = run_training(device, Path(tmp))
@@ -2750,10 +2962,14 @@ def main() -> int:
     profile_quantum(quantum_calls, smi)
     del quantum_calls
     errs["fused_step"] = check_step_kernel(device)
+    for name, err in wide_errs.items():
+        errs[name] = max(errs.get(name, 0.0), err)
     headline_ms = run_headline(device, paths)
     step_table = time_step(device, smi)
     pass_table.update(time_passes(pass_cases(device, "k5"), smi))
     m3_errs = check_m3_kernels(device)
+    for name in M3_KERNELS:
+        m3_errs[name] = max(m3_errs[name], wide_errs[name])
     m3_chain_ms = run_m3_chain(device, paths)
     m3_table = time_m3(device, smi, step_table)
     pass_table.update(time_passes(pass_cases(device, "dm"), smi))
@@ -2773,7 +2989,7 @@ def main() -> int:
     }
     kernels = []
     for name, (src, tpu) in sources.items():
-        t = table[(name, 784, 4096)]
+        t = table[(name, SHAPE[0], T, 4096)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2787,8 +3003,17 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_us": t["bound_ms"] * 1e3,
             "bound_by": t["bound_by"],
+            "bound_fp32_ms": t["bound_fp32_ms"],
             "library_ms": t["library_ms"],
-            "at": "x[4096,784], 'high', f32",
+            "device_us": t["device_us"],
+            "at": f"x[4096,784] @ w2[{DP1 * 784},{T}], 'high', f32: the "
+                  "flagship checkpoint's layer 0",
+            "at_shapes": {
+                f"x[{b},{n}] T {t_dim}": {
+                    k: row[k] for k in ("ms", "device_us", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "bound_fp32_ms")}
+                for (nm, n, t_dim, b), row in table.items() if nm == name},
         })
     # the two fixed-order passes, one kernel: the cross-block sums that the
     # TPU grids carried in dw_ref / dm_ref across their sequential steps
@@ -2865,6 +3090,7 @@ def main() -> int:
         "bound_us": t["bound_ms"] * 1e3,
         "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, T {HK}, no tanh, 'sumsq', f32",
         "at_layer0_B4096_mse": t0,
+        "at_layer0_T32_B4096_mse": step_table["layer0_T32_B4096_mse"],
     })
     head, wide = (f"B{HB}_N{HN}_K{HK}_dp1_{HDEG + 1}",
                   "B{}_N{}_K{}_dp1_{}".format(*M3_WIDE))

@@ -39,10 +39,13 @@
 // partial_sum.cu sums the partials over row blocks (launched by the entry
 // itself when given dw, or by qkan_fused_bwd_partial_sum).  No float
 // atomics, so a run gives the same bits every time.  Rows per block are
-// chosen so that the partials stay under 4 MB.  Past DC degrees (large dp1 or T) the degree
-// chunks run as successive launches that carry dt through a [B, in] f32
-// workspace, so the whole domain of the forward (dp1 <= 32, T <= 64)
-// trains.  want_dx = 0 skips dx (an input that needs no gradient).
+// chosen so that the partials stay under 4 MB.  Any dp1 and T: past DC
+// degrees the degree chunks run as successive launches, and past 64
+// outputs the columns run in slices of COL_SLICE, each slice's chunks in
+// turn.  The dW slices are disjoint; dx is linear in g's columns, so the
+// launches carry dt through a [B, in] f32 workspace and add to it in launch
+// order (the last one writes dx).  want_dx = 0 skips dx (an input that
+// needs no gradient).
 //
 // Precision.  round_bf16=0: FP32 products and sums.  round_bf16=1
 // (degree-wise 'bf16'): g, W_d and T_d are rounded to bf16 before each
@@ -54,6 +57,7 @@
 #include <type_traits>
 
 #include "qkan_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
 
@@ -62,16 +66,31 @@ using qkan::bf16_round;
 constexpr int MAX_FEAT = 128;  // threads of a block: one input feature each
 constexpr int GROWS = 32;      // rows of g staged in shared memory at a time
 constexpr size_t PARTIAL_BUDGET = size_t(4) << 20;  // bytes of dW partials
+constexpr int COL_SLICE = 64;  // output columns a backward launch takes
 
 // degrees a thread holds in registers at once: DC * TP <= 64
 __host__ __device__ constexpr int degree_chunk(int tp) {
   return tp >= 64 ? 1 : 64 / tp;
 }
 
-// launches of the per-block kernel in one backward call: one per chunk of
+// launches of the per-block kernel for one column slice: one per chunk of
 // dc degrees of the dp1 - 1 that have products (one when dp1 = 1)
 int degree_chunks(int dp1, int dc) {
   return dp1 > 1 ? (dp1 - 1 + dc - 1) / dc : 1;
+}
+
+// column slices of a backward: COL_SLICE columns each, the last the rest
+int col_slices(int T) { return (T + COL_SLICE - 1) / COL_SLICE; }
+
+// launches of the per-block kernel in one backward call: each column
+// slice's degree chunks, at the slice's padded width
+int bwd_launches(int dp1, int T) {
+  int n = 0;
+  for (int c0 = 0; c0 < T; c0 += COL_SLICE) {
+    const int w = T - c0 < COL_SLICE ? T - c0 : COL_SLICE;
+    n += degree_chunks(dp1, degree_chunk(qkan::pad_t(w)));
+  }
+  return n;
 }
 
 struct Layout {
@@ -94,22 +113,22 @@ Layout layout(int B, int in, int dp1, int T, int want_dx,
   L.nrb = (int)(((size_t)B + rows - 1) / rows);
   L.part_floats = (size_t)L.nrb * (dp1 - 1) * in * T;
   L.gpart_floats = (size_t)L.nrb * T;
-  const int dc = degree_chunk(qkan::pad_t(T));
-  L.dt_floats = (want_dx && dp1 - 1 > dc) ? (size_t)B * in : 0;
+  L.dt_floats = (want_dx && bwd_launches(dp1, T) > 1) ? (size_t)B * in : 0;
   return L;
 }
 
-// One degree chunk [d_begin, d_begin + DC) over one block's rows.  first:
-// the chunk that starts dt (and takes colsum(g)); last: the chunk that
-// writes dx.
+// One degree chunk [d_begin, d_begin + DC) of the column slice [c0, c0 +
+// T) over one block's rows; ldt is the full width of w2, g and the
+// partials.  first: the launch that starts dt; last: the launch that
+// writes dx; csum_chunk: the slice's chunk that takes colsum(g).
 template <typename XT, int TP, int DC, bool ROUND>
 __global__ void __launch_bounds__(MAX_FEAT)
 fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
                     const float* __restrict__ g, XT* __restrict__ dx,
                     float* __restrict__ dt_acc, float* __restrict__ part,
                     float* __restrict__ gpart, int B, int in, int dp1, int T,
-                    int rows, int d_begin, int apply_tanh, int want_dx,
-                    int first, int last) {
+                    int ldt, int c0, int rows, int d_begin, int apply_tanh,
+                    int want_dx, int first, int last, int csum_chunk) {
   constexpr bool XBF16 = !std::is_same<XT, float>::value;
   __shared__ __align__(16) float g_s[GROWS * TP];  // g as given (f32)
   __shared__ float x_s[GROWS * MAX_FEAT];          // x in f32
@@ -130,7 +149,7 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
     for (int c = 0; c < TP; ++c) {
       float v = 0.f;
       if (active && j < nd && c < T) {
-        v = w2[((size_t)(d_begin + j) * in + i) * T + c];
+        v = w2[((size_t)(d_begin + j) * in + i) * ldt + c0 + c];
         if (ROUND) v = bf16_round(v);
       }
       w[j][c] = v;
@@ -140,7 +159,7 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
 
   // dW_0 = colsum(g), unrounded: this row block's share, in row order, of
   // columns tid and tid + blockDim.x (T <= 64 <= 2 * blockDim.x)
-  const bool colsum = first && blockIdx.y == 0;
+  const bool colsum = csum_chunk && blockIdx.y == 0;
   float csum0 = 0.f, csum1 = 0.f;
 
   for (int r0 = r_begin; r0 < r_end; r0 += GROWS) {
@@ -148,7 +167,8 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
     __syncthreads();  // the previous tile's readers are done
     for (int idx = tid; idx < GROWS * TP; idx += blockDim.x) {
       const int rr = idx / TP, c = idx - rr * TP;
-      g_s[idx] = (rr < nr && c < T) ? g[(size_t)(r0 + rr) * T + c] : 0.f;
+      g_s[idx] = (rr < nr && c < T) ? g[(size_t)(r0 + rr) * ldt + c0 + c]
+                                    : 0.f;
     }
 #pragma unroll
     for (int rr = 0; rr < GROWS; ++rr) {
@@ -247,9 +267,9 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
   }
 
   if (colsum) {
-    if (tid < T) gpart[(size_t)rb * T + tid] = csum0;
+    if (tid < T) gpart[(size_t)rb * ldt + c0 + tid] = csum0;
     if (tid + (int)blockDim.x < T) {
-      gpart[(size_t)rb * T + tid + blockDim.x] = csum1;
+      gpart[(size_t)rb * ldt + c0 + tid + blockDim.x] = csum1;
     }
   }
   if (!active) return;
@@ -257,7 +277,8 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
   for (int j = 0; j < DC; ++j) {
     if (j < nd) {
       float* dst =
-          part + (((size_t)rb * (dp1 - 1) + (d_begin - 1 + j)) * in + i) * T;
+          part + (((size_t)rb * (dp1 - 1) + (d_begin - 1 + j)) * in + i) * ldt +
+          c0;
 #pragma unroll
       for (int c = 0; c < TP; ++c) {
         if (c < T) dst[c] = acc[j][c];
@@ -321,6 +342,10 @@ fused_dw_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
 // The block writes colsum(g) into K2's gpart slot and its loss partial
 // into an [nrb] tail of the workspace; a one-block kernel sums those in a
 // fixed order.  No float atomics: a run gives the same bits every time.
+// Where T or dp1 passes what one launch stages (step_cols), the kernel
+// runs once a column slice [c0, c0 + T) of the width-ldt w2, y and
+// partials, in order; each slice adds its loss partial to the previous
+// slices' in place.
 
 constexpr int STEP_WARPS = 8;
 constexpr int STEP_THREADS = 32 * STEP_WARPS;
@@ -341,8 +366,8 @@ __global__ void __launch_bounds__(STEP_THREADS)
 fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
                   const float* __restrict__ y, float* __restrict__ part,
                   float* __restrict__ gpart, float* __restrict__ lpart,
-                  int B, int in, int dp1, int T, int rows, int chunk,
-                  int super_rows, int apply_tanh, float g_scale) {
+                  int B, int in, int dp1, int T, int ldt, int c0, int rows,
+                  int chunk, int super_rows, int apply_tanh, float g_scale) {
   constexpr bool XBF16 = !std::is_same<XT, float>::value;
   constexpr int DC = degree_chunk(TP);
   constexpr int RED = step_red_floats<TP>();
@@ -404,7 +429,7 @@ fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
             const int i = i0 + k;
             float w = 0.f;
             if (i < in && c < T) {
-              w = w2[((size_t)d * in + i) * T + c];
+              w = w2[((size_t)d * in + i) * ldt + c0 + c];
               if (XBF16) w = bf16_round(w);
             }
             w_s[idx] = w;
@@ -452,7 +477,8 @@ fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
           for (int w = 0; w < STEP_WARPS; ++w) {
             o += red_s[(w * GROWS + r) * (TP + 1) + c];
           }
-          const float e = y != nullptr ? o - y[(size_t)b * T + c] : o;
+          const float e =
+              y != nullptr ? o - y[(size_t)b * ldt + c0 + c] : o;
           lsum = fmaf(e, e, lsum);
           gv = g_scale * e;
         }
@@ -521,7 +547,8 @@ fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
           for (int j = 0; j < DC; ++j) {
             if (j < nd) {
               float* dst =
-                  part + (((size_t)rb * (dp1 - 1) + (d0 - 1 + j)) * in + i) * T;
+                  part + (((size_t)rb * (dp1 - 1) + (d0 - 1 + j)) * in + i) * ldt +
+                  c0;
 #pragma unroll
               for (int c = 0; c < TP; ++c) {
                 if (c < T) dst[c] = first_super ? acc[j][c] : dst[c] + acc[j][c];
@@ -549,8 +576,10 @@ fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
             for (int q2 = 0; q2 < rg; ++q2) {
               s += red_s[(size_t)(q2 * items + it2) * (DC * TP) + rem];
             }
-            float* dst =
-                part + (((size_t)rb * (dp1 - 1) + (d - 1)) * in + it2 % in) * T + c;
+            float* dst = part +
+                         (((size_t)rb * (dp1 - 1) + (d - 1)) * in + it2 % in) *
+                             ldt +
+                         c0 + c;
             *dst = first_super ? s : *dst + s;
           }
         }
@@ -559,13 +588,13 @@ fused_step_kernel(const XT* __restrict__ x, const float* __restrict__ w2,
     }
   }
 
-  if (tid < T) gpart[(size_t)rb * T + tid] = gsum;
+  if (tid < T) gpart[(size_t)rb * ldt + c0 + tid] = gsum;
   l_s[tid] = lsum;
   __syncthreads();
   if (tid == 0) {
     float s = 0.f;
     for (int k = 0; k < STEP_THREADS; ++k) s += l_s[k];
-    lpart[rb] = s;
+    lpart[rb] = c0 == 0 ? s : lpart[rb] + s;  // slices add in order
   }
 }
 
@@ -674,9 +703,41 @@ TcShape tc_shape(int in, int dp1, int T) {
                  (size_t)TC_ROWS * tn + tn + 32 * tn + TC_THREADS +
                  64 * tn) +
             2 * (size_t)sh.xstage;
-  sh.ok = QKAN_STEP_TC && dp1 >= 2 && k <= 1024 && sh.mpw * sh.nt <= TC_ACC &&
-          sh.smem <= TC_SMEM_MAX;
+  sh.ok = QKAN_STEP_TC && dp1 >= 2 && T <= COL_SLICE && k <= 1024 &&
+          sh.mpw * sh.nt <= TC_ACC && sh.smem <= TC_SMEM_MAX;
   return sh;
+}
+
+// bytes of t and W that the CUDA-core step kernel stages at `chunk`
+// features (its budget: STEP_STAGE_BYTES)
+size_t step_stage_bytes(int dp1, int TP, int chunk) {
+  return ((size_t)GROWS * (chunk + 1) + (size_t)dp1 * chunk * TP) * 4;
+}
+
+// Columns of one launch of a train step: all T where the tensor-core
+// kernel takes the shape, else the widest of T (up to 64), 64, 32, 16,
+// 12, 8, 4 whose CUDA-core staging fits at a chunk of STEP_WARPS
+// features; failing that, at a chunk of 1 (dp1 past 759 at 4 columns);
+// 0 where nothing fits.  Past one slice, qkan_fused_step launches the
+// CUDA-core kernel a slice: out, err and g are elementwise in the
+// columns, so the slices' dW are disjoint columns of one workspace and
+// their loss partials add in slice order.
+int step_cols(int in, int dp1, int T) {
+  if (tc_shape(in, dp1, T).ok) return T;
+  const int widths[7] = {T < COL_SLICE ? T : COL_SLICE, 64, 32, 16, 12, 8, 4};
+  for (int chunk = STEP_WARPS; chunk >= 1; chunk = chunk > 1 ? 1 : 0) {
+    for (int w : widths) {
+      if (w <= widths[0] &&
+          step_stage_bytes(dp1, qkan::pad_t(w), chunk) <= STEP_STAGE_BYTES) {
+        return w;
+      }
+    }
+  }
+  return 0;
+}
+
+bool bad_step(int B, int in, int dp1, int T) {
+  return B < 1 || in < 1 || dp1 < 1 || T < 1 || step_cols(in, dp1, T) == 0;
 }
 
 // K5's layout: on the tensor-core path up to TC_GRID row blocks of whole
@@ -708,70 +769,15 @@ Layout step_layout(int B, int in, int dp1, int T) {
   return L;
 }
 
-// v = hi + lo exactly: hi is v with its 13 low mantissa bits cleared (a
-// TF32 value), lo = v - hi, exact in FP32.  The tensor core reads lo as
-// TF32 too, dropping its low bits: |error| <= 2^-20 |v| a product with
-// the lo*lo pass left out, against 2^-24 for an FP32 product.
-__device__ __forceinline__ float2 split_tf32(float v) {
-  const float hi = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
-  return make_float2(hi, v - hi);
-}
-
-// the {b0 hi, b1 hi, b0 lo, b1 lo} of a B fragment {b0, b1}; EXACT: its
-// values are TF32 already (lo = 0, never read)
-template <bool EXACT>
-__device__ __forceinline__ float4 b_frag(float2 v) {
-  if (EXACT) return make_float4(v.x, v.y, 0.f, 0.f);
-  const float2 p = split_tf32(v.x), q = split_tf32(v.y);
-  return make_float4(p.x, q.x, p.y, q.y);
-}
-
-// c += a @ b on one 16x8x8 TF32 tile, FP32 sums
-__device__ __forceinline__ void mma_tf32(float (&c)[4], unsigned a0,
-                                         unsigned a1, unsigned a2,
-                                         unsigned a3, unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// the three passes of 3xTF32, a = {hi, lo} fragments, b = {b0 hi, b1 hi,
-// b0 lo, b1 lo}: big += a_hi b_hi, s1 += a_lo b_hi, s2 += a_hi b_lo.  The
-// accumulators may be one array or three: three make three shorter chains
-// of dependent mma.  A pass whose operand is exact in TF32 (EXACT_A /
-// EXACT_B: its lo is 0) is skipped.
-template <bool EXACT_A, bool EXACT_B>
-__device__ __forceinline__ void mma_3x(float (&big)[4], float (&s1)[4],
-                                       float (&s2)[4], const float2 (&a)[4],
-                                       float4 b) {
-#define QKAN_U(v) __float_as_uint(v)
-  if (!EXACT_A) {
-    mma_tf32(s1, QKAN_U(a[0].y), QKAN_U(a[1].y), QKAN_U(a[2].y),
-             QKAN_U(a[3].y), QKAN_U(b.x), QKAN_U(b.y));
-  }
-  if (!EXACT_B) {
-    mma_tf32(s2, QKAN_U(a[0].x), QKAN_U(a[1].x), QKAN_U(a[2].x),
-             QKAN_U(a[3].x), QKAN_U(b.z), QKAN_U(b.w));
-  }
-  mma_tf32(big, QKAN_U(a[0].x), QKAN_U(a[1].x), QKAN_U(a[2].x),
-           QKAN_U(a[3].x), QKAN_U(b.x), QKAN_U(b.y));
-#undef QKAN_U
-}
-
-// accumulator sets a thread keeps for `pairs` (m16, n8) tiles within 32
-// registers: 3 (big, s1, s2), 2 (s1 takes both small passes) or 1
-__host__ __device__ constexpr int acc_sets(int pairs) {
-  return pairs <= 2 ? 3 : pairs <= 4 ? 2 : 1;
-}
-
-// big + s1 + s2 of one accumulator element, as acc_sets keeps them
-template <int SETS>
-__device__ __forceinline__ float acc_total(float big, float s1, float s2) {
-  return SETS == 3 ? big + (s1 + s2) : SETS == 2 ? big + s1 : big;
-}
+// the fragment, mma and cp.async helpers of tc_common.cuh
+using qkan::a_frag;
+using qkan::acc_sets;
+using qkan::acc_total;
+using qkan::b_frag;
+using qkan::cp_async16;
+using qkan::cp_async_commit;
+using qkan::cp_async_wait;
+using qkan::mma_3x;
 
 // column k of basis row r lives at k ^ swz(r): the forward's A fragments
 // (8 rows x 4 columns) and dW's transposed ones (4 rows x 8 columns) both
@@ -783,31 +789,6 @@ __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
 __device__ __forceinline__ int frag_slot(int k, int n, int nt) {
   const int lane = (n & 7) * 4 + (k & 3);
   return ((((k >> 3) * nt + (n >> 3)) * 32 + lane) << 1) + ((k >> 2) & 1);
-}
-
-// the {hi, lo} pairs of four basis values (EXACT: TF32 already)
-template <bool EXACT>
-__device__ __forceinline__ void a_frag(float2 (&a)[4], float v0, float v1,
-                                       float v2, float v3) {
-  const float v[4] = {v0, v1, v2, v3};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    a[q] = EXACT ? make_float2(v[q], 0.f) : split_tf32(v[q]);
-  }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // the x rows [r0, r0 + 64) into a stage, zeros past r_end
@@ -1173,15 +1154,18 @@ cudaError_t dispatch_step_tc(const void* x, const float* w2, const float* y,
   return cudaErrorInvalidValue;
 }
 
+// The column slice [c0, c0 + T) of a width-ldt step; the loss sum after
+// the last slice.
 template <typename XT, int TP>
 cudaError_t launch_step(const void* x, const float* w2, const float* y,
                         float* loss, float* ws, const Layout& L, int B,
-                        int in, int dp1, int T, int apply_tanh,
-                        float g_scale, float loss_scale, cudaStream_t s) {
-  // widest chunk of features whose t and W staging fits its budget
+                        int in, int dp1, int T, int ldt, int c0,
+                        int apply_tanh, float g_scale, float loss_scale,
+                        cudaStream_t s) {
+  // widest chunk of features whose t and W staging fits its budget (below
+  // STEP_WARPS only at dp1 past what a slice of 4 columns stages at 8)
   int chunk = 64;
-  while (chunk > STEP_WARPS &&
-         (GROWS * (chunk + 1) + dp1 * chunk * TP) * 4 > STEP_STAGE_BYTES) {
+  while (chunk > 1 && step_stage_bytes(dp1, TP, chunk) > STEP_STAGE_BYTES) {
     chunk /= 2;
   }
   const int in_pad = (in + STEP_WARPS - 1) / STEP_WARPS * STEP_WARPS;
@@ -1202,33 +1186,43 @@ cudaError_t launch_step(const void* x, const float* w2, const float* y,
   float* lpart = gpart + L.gpart_floats;
   kernel<<<L.nrb, STEP_THREADS, bytes, s>>>(
       static_cast<const XT*>(x), w2, y, part, gpart, lpart, B, in, dp1, T,
-      L.rows, chunk, super_rows, apply_tanh, g_scale);
+      ldt, c0, L.rows, chunk, super_rows, apply_tanh, g_scale);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || c0 + T < ldt) return err;
   fused_step_loss_kernel<<<1, 256, 0, s>>>(lpart, L.nrb, loss_scale, loss);
   return cudaGetLastError();
 }
 
+// every column slice of a step (step_cols wide), in order
 template <typename XT>
 cudaError_t dispatch_step(const void* x, const float* w2, const float* y,
                           float* loss, float* ws, const Layout& L, int B,
                           int in, int dp1, int T, int apply_tanh,
                           float g_scale, float loss_scale, cudaStream_t s) {
-  switch (qkan::pad_t(T)) {
-    case 4: return launch_step<XT, 4>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-    case 8: return launch_step<XT, 8>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-    case 12: return launch_step<XT, 12>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-    case 16: return launch_step<XT, 16>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-    case 32: return launch_step<XT, 32>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
-    default: return launch_step<XT, 64>(x, w2, y, loss, ws, L, B, in, dp1, T, apply_tanh, g_scale, loss_scale, s);
+  const int width = step_cols(in, dp1, T);
+  for (int c0 = 0; c0 < T; c0 += width) {
+    const int w = T - c0 < width ? T - c0 : width;
+    cudaError_t err;
+    switch (qkan::pad_t(w)) {
+      case 4: err = launch_step<XT, 4>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+      case 8: err = launch_step<XT, 8>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+      case 12: err = launch_step<XT, 12>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+      case 16: err = launch_step<XT, 16>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+      case 32: err = launch_step<XT, 32>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+      default: err = launch_step<XT, 64>(x, w2, y, loss, ws, L, B, in, dp1, w, T, c0, apply_tanh, g_scale, loss_scale, s); break;
+    }
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
 }
 
+// The degree chunks of the column slice [c0, c0 + T) of a width-ldt
+// backward; first / last: the slice is the call's first / last.
 template <typename XT, int TP, bool ROUND>
 cudaError_t launch(const void* x, const float* w2, const float* g, void* dx,
                    float* ws, const Layout& L, int B, int in,
-                   int dp1, int T, int apply_tanh, int want_dx,
-                   cudaStream_t s) {
+                   int dp1, int T, int ldt, int c0, int apply_tanh,
+                   int want_dx, bool first, bool last, cudaStream_t s) {
   constexpr int DC = degree_chunk(TP);
   float* part = ws;
   float* gpart = part + L.part_floats;
@@ -1239,31 +1233,39 @@ cudaError_t launch(const void* x, const float* w2, const float* g, void* dx,
   for (int k = 0; k < nchunks; ++k) {
     fused_dw_bwd_kernel<XT, TP, DC, ROUND><<<grid, threads, 0, s>>>(
         static_cast<const XT*>(x), w2, g, static_cast<XT*>(dx), dt, part,
-        gpart, B, in, dp1, T, L.rows, 1 + k * DC, apply_tanh, want_dx,
-        k == 0, k == nchunks - 1);
+        gpart, B, in, dp1, T, ldt, c0, L.rows, 1 + k * DC, apply_tanh,
+        want_dx, first && k == 0, last && k == nchunks - 1, k == 0);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
+// every column slice of a backward, in order
 template <typename XT, bool ROUND>
 cudaError_t dispatch_tp(const void* x, const float* w2, const float* g,
                         void* dx, float* ws, const Layout& L,
                         int B, int in, int dp1, int T, int apply_tanh,
                         int want_dx, cudaStream_t s) {
-  switch (qkan::pad_t(T)) {
-    case 4: return launch<XT, 4, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
-    case 8: return launch<XT, 8, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
-    case 12: return launch<XT, 12, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
-    case 16: return launch<XT, 16, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
-    case 32: return launch<XT, 32, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
-    default: return launch<XT, 64, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, T, apply_tanh, want_dx, s);
+  for (int c0 = 0; c0 < T; c0 += COL_SLICE) {
+    const int w = T - c0 < COL_SLICE ? T - c0 : COL_SLICE;
+    const bool first = c0 == 0, last = c0 + w == T;
+    cudaError_t err;
+    switch (qkan::pad_t(w)) {
+      case 4: err = launch<XT, 4, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+      case 8: err = launch<XT, 8, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+      case 12: err = launch<XT, 12, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+      case 16: err = launch<XT, 16, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+      case 32: err = launch<XT, 32, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+      default: err = launch<XT, 64, ROUND>(x, w2, g, dx, ws, L, B, in, dp1, w, T, c0, apply_tanh, want_dx, first, last, s); break;
+    }
+    if (err != cudaSuccess) return err;
   }
+  return cudaSuccess;
 }
 
 bool bad_shape(int B, int in, int dp1, int T) {
-  return B < 1 || in < 1 || dp1 < 1 || dp1 > 32 || T < 1 || T > 64;
+  return B < 1 || in < 1 || dp1 < 1 || T < 1;
 }
 
 size_t workspace_bytes(const Layout& L) {
@@ -1326,10 +1328,15 @@ extern "C" int qkan_fused_bwd_row_blocks(int B, int in, int dp1, int T) {
 }
 
 // Kernel launches that one call of either entry below makes when it
-// succeeds: one per degree chunk.
+// succeeds: one per degree chunk of each column slice.
 extern "C" int qkan_fused_bwd_launches(int dp1, int T) {
   if (bad_shape(1, 1, dp1, T)) return 0;
-  return degree_chunks(dp1, degree_chunk(qkan::pad_t(T)));
+  return bwd_launches(dp1, T);
+}
+
+// Column slices of a backward call: COL_SLICE (64) columns each.
+extern "C" int qkan_fused_bwd_col_slices(int T) {
+  return T < 1 ? 0 : col_slices(T);
 }
 
 // C entry points of the backward.  x: [B, in] f32 (x_is_bf16=0) or bf16
@@ -1379,11 +1386,19 @@ extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
                             static_cast<cudaStream_t>(stream));
 }
 
+// Columns of one launch of a train step at these sizes (step_cols): T
+// where one launch takes the step, else the width of its column slices,
+// one launch each; 0 where no launch stages dp1.
+extern "C" int qkan_fused_step_col_slice(int in, int dp1, int T) {
+  if (bad_shape(1, in, dp1, T)) return 0;
+  return step_cols(in, dp1, T);
+}
+
 // Bytes of workspace a train step needs: K5's layout (step_layout) of dW
 // and colsum(g) partials, then one loss partial per row block.
 extern "C" long long qkan_fused_step_workspace_bytes(int B, int in, int dp1,
                                                      int T) {
-  if (bad_shape(B, in, dp1, T)) return 0;
+  if (bad_step(B, in, dp1, T)) return 0;
   const Layout L = step_layout(B, in, dp1, T);
   return (long long)(workspace_bytes(L) + (size_t)L.nrb * sizeof(float));
 }
@@ -1391,14 +1406,14 @@ extern "C" long long qkan_fused_step_workspace_bytes(int B, int in, int dp1,
 // Row blocks of a train step, the leading dimension of its partials: a
 // function of (B, in, dp1, T) alone.
 extern "C" int qkan_fused_step_row_blocks(int B, int in, int dp1, int T) {
-  if (bad_shape(B, in, dp1, T)) return 0;
+  if (bad_step(B, in, dp1, T)) return 0;
   return step_layout(B, in, dp1, T).nrb;
 }
 
 // 1 where the step of these shapes runs fused_step_kernel_tc (the tensor
 // cores), 0 where it runs the CUDA-core fused_step_kernel.
 extern "C" int qkan_fused_step_tensor_cores(int in, int dp1, int T) {
-  if (bad_shape(1, in, dp1, T)) return 0;
+  if (bad_step(1, in, dp1, T)) return 0;
   return tc_shape(in, dp1, T).ok ? 1 : 0;
 }
 
@@ -1407,8 +1422,9 @@ extern "C" int qkan_fused_step_tensor_cores(int in, int dp1, int T) {
 // null for 'sumsq' (then never read); loss: one f32; ws: at least
 // qkan_fused_step_workspace_bytes; dw: [dp1*in, T] f32, or null.  All
 // contiguous.  Launches the step kernel (fused_step_kernel_tc where
-// tc_shape takes the shapes, else fused_step_kernel), the one-block loss
-// sum and, given dw, the fixed-order pass into it (one call a step);
+// tc_shape takes the shapes, else fused_step_kernel once a column slice
+// of step_cols), the one-block loss sum and, given dw, the fixed-order
+// pass into it (one call a step);
 // without dw, dW comes from qkan_fused_step_partial_sum over ws.  Returns
 // the CUDA error of the launches (0 on success), allocates nothing and
 // does not synchronise.
@@ -1417,7 +1433,7 @@ extern "C" int qkan_fused_step(const void* x, const void* w2, const void* y,
                                int B, int in, int dp1, int T, int x_is_bf16,
                                int apply_tanh, float g_scale,
                                float loss_scale, void* dw, void* stream) {
-  if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
+  if (bad_step(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
   const Layout L = step_layout(B, in, dp1, T);
   if (ws_bytes < 0 ||
       (size_t)ws_bytes < workspace_bytes(L) + (size_t)L.nrb * sizeof(float)) {
@@ -1449,7 +1465,7 @@ extern "C" int qkan_fused_step(const void* x, const void* w2, const void* y,
 extern "C" int qkan_fused_step_partial_sum(const void* ws, long long ws_bytes,
                                            void* dw, int B, int in, int dp1,
                                            int T, void* stream) {
-  if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
+  if (bad_step(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
   const Layout L = step_layout(B, in, dp1, T);
   if (ws_bytes < 0 ||
       (size_t)ws_bytes < workspace_bytes(L) + (size_t)L.nrb * sizeof(float)) {

@@ -50,6 +50,17 @@
 //       columns) against M3 rows read as broadcasts, and writes dx into the
 //       x tile in place, from where the block stores it coalesced.
 // want_dx = 0 (the weight-only backward) stages no M3 and writes no dx.
+//
+// Any M3 and any D+1.  Where a kernel's staging of M3 (and its tiles) does
+// not fit one block's shared memory, an entry runs it over slices of M3
+// (m3_slices, below; C entries qkan_m3_slice_n / qkan_m3_slice_k): the
+// output columns K first, then, where one 4-column slice still overflows,
+// the features N too.  out and dM are disjoint over K slices, dx and dM
+// over N slices.  dx adds over K slices and out over N slices: the
+// launches carry the f32 sums through a workspace in launch order and the
+// last one stores them in x's dtype (out over N continues the one FMA
+// chain, so its bits are those of one launch).  The D+1 degrees need no
+// slicing: the recurrence runs to each degree chunk in registers.
 
 #include <type_traits>
 
@@ -61,7 +72,6 @@ using qkan::bf16_round;
 using qkan::cheb_next;
 
 constexpr int THREADS = 256;      // backward threads; forward at most this
-constexpr int MAX_DP1 = 32;
 constexpr int DC = 8;             // degrees of dM sums a thread holds at once
 constexpr int MAX_BLOCKS = 264;   // row blocks of a backward: 2 per H100 SM
 constexpr size_t PART_BUDGET = size_t(16) << 20;  // bytes of dM partials
@@ -86,7 +96,7 @@ Geo geo(int N, int K) {
 }
 
 bool bad_shape(long long B, int N, int dp1, int K) {
-  return B < 0 || N < 1 || dp1 < 1 || dp1 > MAX_DP1 || K < 1;
+  return B < 0 || N < 1 || dp1 < 1 || K < 1;
 }
 
 long long m3_floats(int N, int dp1, const Geo& G) {
@@ -125,15 +135,43 @@ int bwd_tile_rows(int N, int dp1, int K, int want_dx) {
   return 0;
 }
 
+// whether a kernel (kind 0: the forward, 1: the backward with dx, 2: the
+// weight-only backward) takes a slice of nw features and kw columns
+bool fits(int nw, int dp1, int kw, int kind) {
+  return kind == 0 ? fwd_threads(nw, dp1, kw) > 0
+                   : bwd_tile_rows(nw, dp1, kw, kind == 1) > 0;
+}
+
+// The slice of M3 one launch takes: all of it where it fits; else the
+// widest kw of K, then 32-column steps down to 32, then 16, 8, 4; where 4
+// columns still overflow (large N * (D+1)), also nw = N halved (rounded
+// up) until it fits.  nw = 1 and kw <= 4 may still overflow (D+1 in the
+// tens of thousands): the entries refuse that.
+struct Slices {
+  int nw, kw;
+};
+
+Slices m3_slices(int N, int dp1, int K, int kind) {
+  Slices s{N, K};
+  while (s.kw > 4 && !fits(N, dp1, s.kw, kind)) {
+    s.kw = s.kw > 32 ? (s.kw - 1) / 32 * 32 : s.kw > 16 ? 16 : s.kw > 8 ? 8 : 4;
+  }
+  while (s.nw > 1 && !fits(s.nw, dp1, s.kw, kind)) s.nw = (s.nw + 1) / 2;
+  return s;
+}
+
 struct BwdLayout {
   int TR;    // rows a tile
   int rows;  // rows a block, a multiple of TR
   int nblk;  // blocks, the leading dimension of the partials
 };
 
+// rows and blocks of a backward over the whole M3 (the partials' budget),
+// with the tile rows of its widest slice
 BwdLayout bwd_layout(long long B, int N, int dp1, int K, int want_dx) {
   BwdLayout L;
-  L.TR = bwd_tile_rows(N, dp1, K, want_dx);
+  const Slices s = m3_slices(N, dp1, K, want_dx ? 1 : 2);
+  L.TR = bwd_tile_rows(s.nw, dp1, s.kw, want_dx);
   const long long tiles = (B + L.TR - 1) / L.TR;
   long long cap = (long long)(PART_BUDGET / ((size_t)dp1 * N * K * 4));
   if (cap > MAX_BLOCKS) cap = MAX_BLOCKS;
@@ -144,22 +182,41 @@ BwdLayout bwd_layout(long long B, int N, int dp1, int K, int want_dx) {
   return L;
 }
 
-// Stage rows [r0, r0 + nr) of x [.., N] into x_s [nr][XS] as f32.
+// Stage rows [r0, r0 + nr) of the features [n0, n0 + N) of x [.., ldn]
+// into x_s [nr][XS] as f32.
 template <typename XT>
 __device__ __forceinline__ void stage_x(const XT* __restrict__ x, float* x_s,
-                                        long long r0, int nr, int N, int XS) {
-  const XT* src = x + (size_t)r0 * N;
+                                        long long r0, int nr, int N, int XS,
+                                        int ldn, int n0) {
+  const XT* src = x + (size_t)r0 * ldn + n0;
   for (int i = threadIdx.x; i < nr * N; i += blockDim.x) {
     const int r = i / N, n = i - r * N;
-    x_s[r * XS + n] = qkan::load_as_float(src + i);
+    x_s[r * XS + n] = qkan::load_as_float(src + (size_t)r * ldn + n);
   }
 }
 
+// M3's slice [.., n0 : n0 + N, k0 : k0 + K] of the whole [dp1, ldn, ldk]
+// into m_s [dp1][N][KP], zero past K
+__device__ __forceinline__ void stage_m3(const float* __restrict__ m3,
+                                         float* m_s, int N, int dp1, int K,
+                                         int KP, int ldn, int n0, int ldk,
+                                         int k0) {
+  for (int i = threadIdx.x; i < dp1 * N * KP; i += blockDim.x) {
+    const int row = i / KP, c = i - row * KP;
+    const int d = row / N, n = row - d * N;
+    m_s[i] = c < K ? m3[((size_t)d * ldn + n0 + n) * ldk + k0 + c] : 0.f;
+  }
+}
+
+// One slice: features [n0, n0 + N) and columns [ks, ks + K) of the whole
+// [dp1, ldn, ldk] M3.  first: the slice starts out's sums (else they
+// continue from carry [B, ldk] f32); last: it stores out (else carry).
 template <typename XT, int KC>
 __global__ void __launch_bounds__(THREADS)
 m3_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
-              XT* __restrict__ out, long long B, int N, int dp1, int K,
-              int KP, int XS) {
+              XT* __restrict__ out, float* __restrict__ carry, long long B,
+              int N, int dp1, int K, int KP, int XS, int ldn, int n0,
+              int ldk, int ks, int first, int last) {
   constexpr bool XBF16 = !std::is_same<XT, float>::value;
   extern __shared__ __align__(16) float smem[];
   const int nt = blockDim.x;
@@ -168,21 +225,21 @@ m3_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
   float* x_s = m_s + (size_t)dp1 * N * KP;   // [nt][XS]
   float* o_s = x_s + (size_t)nt * XS;        // [nt][KC + 1]
 
-  for (int i = tid; i < dp1 * N * KP; i += nt) {
-    const int row = i / KP, c = i - row * KP;
-    m_s[i] = c < K ? m3[(size_t)row * K + c] : 0.f;
-  }
+  stage_m3(m3, m_s, N, dp1, K, KP, ldn, n0, ldk, ks);
   for (long long r0 = (long long)blockIdx.x * nt; r0 < B;
        r0 += (long long)gridDim.x * nt) {
     const int nr = (int)min((long long)nt, B - r0);
     __syncthreads();  // M3 staged; the previous tile's readers are done
-    stage_x(x, x_s, r0, nr, N, XS);
+    stage_x(x, x_s, r0, nr, N, XS, ldn, n0);
     __syncthreads();
     for (int k0 = 0; k0 < KP; k0 += KC) {
       if (tid < nr) {
         float acc[KC];
+        const float* crow = carry + (size_t)(r0 + tid) * ldk + ks + k0;
 #pragma unroll
-        for (int c = 0; c < KC; ++c) acc[c] = 0.f;
+        for (int c = 0; c < KC; ++c) {
+          acc[c] = first || k0 + c >= K ? 0.f : crow[c];
+        }
         const float* xr = x_s + tid * XS;
         for (int n = 0; n < N; ++n) {
           const float t = xr[n];
@@ -213,20 +270,30 @@ m3_fwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
       const int kw = min(KC, K - k0);
       for (int i = tid; i < nr * kw; i += nt) {
         const int r = i / kw, c = i - r * kw;
-        qkan::store_float(out + (size_t)(r0 + r) * K + k0 + c,
-                          o_s[r * (KC + 1) + c]);
+        const size_t o = (size_t)(r0 + r) * ldk + ks + k0 + c;
+        if (last) {
+          qkan::store_float(out + o, o_s[r * (KC + 1) + c]);
+        } else {
+          carry[o] = o_s[r * (KC + 1) + c];
+        }
       }
       __syncthreads();
     }
   }
 }
 
+// One slice, as the forward's: features [n0, n0 + N), columns [ks, ks +
+// K); the partials are [nblk, dp1, ldn, ldk].  first: the slice starts
+// dx's sums (else they continue from carry [B, ldn] f32); last: it stores
+// dx (else carry).
 template <typename XT, int KC, bool WANT_DX>
 __global__ void __launch_bounds__(THREADS)
 m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
               const XT* __restrict__ g, XT* __restrict__ dx,
-              float* __restrict__ part, long long B, int N, int dp1, int K,
-              int KP, int XS, int GS, int TR, int rows) {
+              float* __restrict__ part, float* __restrict__ carry,
+              long long B, int N, int dp1, int K, int KP, int XS, int GS,
+              int TR, int rows, int ldn, int n0, int ldk, int ks, int first,
+              int last) {
   constexpr bool XBF16 = !std::is_same<XT, float>::value;
   constexpr int ACC = DC * 4;
   extern __shared__ __align__(16) float smem[];
@@ -236,12 +303,7 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
   float* g_s = x_s + (size_t)TR * XS;                       // [TR][GS]
   float* red_s = x_s;  // [THREADS][ACC], over the tiles once they are read
 
-  if (WANT_DX) {
-    for (int i = tid; i < dp1 * N * KP; i += THREADS) {
-      const int row = i / KP, c = i - row * KP;
-      m_s[i] = c < K ? m3[(size_t)row * K + c] : 0.f;
-    }
-  }
+  if (WANT_DX) stage_m3(m3, m_s, N, dp1, K, KP, ldn, n0, ldk, ks);
   const int blk = blockIdx.x;
   const long long r_begin = (long long)blk * rows;
   const long long r_end = min(B, r_begin + rows);
@@ -250,7 +312,7 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
   const int items = N * K4 * nch;  // (feature, 4 columns, degree chunk)
   const int rg = items >= THREADS ? 1 : THREADS / items;
   const int passes = (items + THREADS - 1) / THREADS;
-  float* dst_blk = part + (size_t)blk * dp1 * N * K;
+  float* dst_blk = part + (size_t)blk * dp1 * ldn * ldk;
 
   for (int p = 0; p < passes; ++p) {
     const int q = rg > 1 ? tid / items : 0;  // row group
@@ -270,12 +332,12 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
     for (long long r0 = r_begin; r0 < r_end; r0 += TR) {
       const int nr = (int)min((long long)TR, r_end - r0);
       __syncthreads();  // M3 staged; the previous tile's readers are done
-      stage_x(x, x_s, r0, nr, N, XS);
-      const XT* gsrc = g + (size_t)r0 * K;
+      stage_x(x, x_s, r0, nr, N, XS, ldn, n0);
+      const XT* gsrc = g + (size_t)r0 * ldk + ks;
       for (int i = tid; i < nr * KP; i += THREADS) {
         const int r = i / KP, c = i - r * KP;
-        g_s[r * GS + c] = c < K ? qkan::load_as_float(gsrc + (size_t)r * K + c)
-                                : 0.f;
+        g_s[r * GS + c] =
+            c < K ? qkan::load_as_float(gsrc + (size_t)r * ldk + c) : 0.f;
       }
       __syncthreads();
 
@@ -361,10 +423,16 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
           }
         }
         __syncthreads();
-        XT* ddst = dx + (size_t)r0 * N;
         for (int i = tid; i < nr * N; i += THREADS) {
           const int r = i / N, nn = i - r * N;
-          qkan::store_float(ddst + i, x_s[r * XS + nn]);
+          const size_t o = (size_t)(r0 + r) * ldn + n0 + nn;
+          float v = x_s[r * XS + nn];
+          if (!first) v = __fadd_rn(carry[o], v);
+          if (last) {
+            qkan::store_float(dx + o, v);
+          } else {
+            carry[o] = v;
+          }
         }
       }
     }
@@ -375,7 +443,7 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
           if (j < nd) {
-            float* dst = dst_blk + ((size_t)(d0 + j) * N + n) * K;
+            float* dst = dst_blk + ((size_t)(d0 + j) * ldn + n0 + n) * ldk + ks;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               if (4 * k4 + e < K) dst[4 * k4 + e] = acc[j][e];
@@ -403,7 +471,7 @@ m3_bwd_kernel(const XT* __restrict__ x, const float* __restrict__ m3,
           for (int q2 = 0; q2 < rg; ++q2) {
             s += red_s[(size_t)(q2 * items + it2) * ACC + rem];
           }
-          dst_blk[((size_t)d * N + n2) * K + kk] = s;
+          dst_blk[((size_t)d * ldn + n0 + n2) * ldk + ks + kk] = s;
         }
       }
     }
@@ -418,9 +486,12 @@ cudaError_t allow_smem(F kernel, long long bytes) {
                               (int)bytes);
 }
 
+// One forward slice: features [n0, n0 + N), columns [ks, ks + K).
 template <typename XT, int KC>
-cudaError_t launch_fwd(const void* x, const float* m3, void* out, long long B,
-                       int N, int dp1, int K, cudaStream_t s) {
+cudaError_t launch_fwd(const void* x, const float* m3, void* out,
+                       float* carry, long long B, int N, int dp1, int K,
+                       int ldn, int n0, int ldk, int ks, int first, int last,
+                       cudaStream_t s) {
   const Geo G = geo(N, K);
   const int nt = fwd_threads(N, dp1, K);
   const long long bytes = fwd_bytes(N, dp1, G, nt);
@@ -442,128 +513,208 @@ cudaError_t launch_fwd(const void* x, const float* m3, void* out, long long B,
   const long long cap = (long long)sms * per_sm;
   const int blocks = (int)(want < cap ? want : cap);
   kernel<<<blocks, nt, (size_t)bytes, s>>>(
-      static_cast<const XT*>(x), m3, static_cast<XT*>(out), B, N, dp1, K,
-      G.KP, G.XS);
+      static_cast<const XT*>(x), m3, static_cast<XT*>(out), carry, B, N, dp1,
+      K, G.KP, G.XS, ldn, n0, ldk, ks, first, last);
   return cudaGetLastError();
 }
 
+// One backward slice, with the block layout of the whole call.
 template <typename XT, int KC, bool WANT_DX>
 cudaError_t launch_bwd(const void* x, const float* m3, const void* g,
-                       void* dx, float* part, long long B, int N, int dp1,
-                       int K, cudaStream_t s) {
+                       void* dx, float* part, float* carry, const BwdLayout& L,
+                       long long B, int N, int dp1, int K, int ldn, int n0,
+                       int ldk, int ks, int first, int last, cudaStream_t s) {
   const Geo G = geo(N, K);
-  const BwdLayout L = bwd_layout(B, N, dp1, K, WANT_DX);
   const long long bytes = bwd_bytes(N, dp1, G, L.TR, WANT_DX);
   auto kernel = m3_bwd_kernel<XT, KC, WANT_DX>;
   const cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<L.nblk, THREADS, (size_t)bytes, s>>>(
       static_cast<const XT*>(x), m3, static_cast<const XT*>(g),
-      static_cast<XT*>(dx), part, B, N, dp1, K, G.KP, G.XS, G.GS, L.TR,
-      L.rows);
+      static_cast<XT*>(dx), part, carry, B, N, dp1, K, G.KP, G.XS, G.GS,
+      L.TR, L.rows, ldn, n0, ldk, ks, first, last);
   return cudaGetLastError();
 }
 
+// Every slice of a call, N slices outer, K slices inner: out's sums carry
+// over N slices (first / last over them), dx's over K slices.
 template <typename XT>
-cudaError_t dispatch_fwd(const void* x, const float* m3, void* out,
-                         long long B, int N, int dp1, int K, cudaStream_t s) {
-  switch (geo(N, K).KC) {
-    case 4: return launch_fwd<XT, 4>(x, m3, out, B, N, dp1, K, s);
-    case 8: return launch_fwd<XT, 8>(x, m3, out, B, N, dp1, K, s);
-    case 16: return launch_fwd<XT, 16>(x, m3, out, B, N, dp1, K, s);
-    default: return launch_fwd<XT, 32>(x, m3, out, B, N, dp1, K, s);
+cudaError_t run_fwd(const void* x, const float* m3, void* out, float* carry,
+                    long long B, int N, int dp1, int K, cudaStream_t s) {
+  const Slices sl = m3_slices(N, dp1, K, 0);
+  for (int n0 = 0; n0 < N; n0 += sl.nw) {
+    const int nw = sl.nw < N - n0 ? sl.nw : N - n0;
+    for (int ks = 0; ks < K; ks += sl.kw) {
+      const int kw = sl.kw < K - ks ? sl.kw : K - ks;
+      const int first = n0 == 0, last = n0 + nw == N;
+      cudaError_t err;
+      switch (geo(nw, kw).KC) {
+        case 4: err = launch_fwd<XT, 4>(x, m3, out, carry, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        case 8: err = launch_fwd<XT, 8>(x, m3, out, carry, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        case 16: err = launch_fwd<XT, 16>(x, m3, out, carry, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        default: err = launch_fwd<XT, 32>(x, m3, out, carry, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+      }
+      if (err != cudaSuccess) return err;
+    }
   }
+  return cudaSuccess;
 }
 
 template <typename XT, bool WANT_DX>
-cudaError_t dispatch_bwd(const void* x, const float* m3, const void* g,
-                         void* dx, float* part, long long B, int N, int dp1,
-                         int K, cudaStream_t s) {
-  switch (geo(N, K).KC) {
-    case 4: return launch_bwd<XT, 4, WANT_DX>(x, m3, g, dx, part, B, N, dp1, K, s);
-    case 8: return launch_bwd<XT, 8, WANT_DX>(x, m3, g, dx, part, B, N, dp1, K, s);
-    case 16: return launch_bwd<XT, 16, WANT_DX>(x, m3, g, dx, part, B, N, dp1, K, s);
-    default: return launch_bwd<XT, 32, WANT_DX>(x, m3, g, dx, part, B, N, dp1, K, s);
+cudaError_t run_bwd(const void* x, const float* m3, const void* g, void* dx,
+                    float* part, float* carry, long long B, int N, int dp1,
+                    int K, cudaStream_t s) {
+  const Slices sl = m3_slices(N, dp1, K, WANT_DX ? 1 : 2);
+  const BwdLayout L = bwd_layout(B, N, dp1, K, WANT_DX);
+  for (int n0 = 0; n0 < N; n0 += sl.nw) {
+    const int nw = sl.nw < N - n0 ? sl.nw : N - n0;
+    for (int ks = 0; ks < K; ks += sl.kw) {
+      const int kw = sl.kw < K - ks ? sl.kw : K - ks;
+      const int first = ks == 0, last = ks + kw == K;
+      cudaError_t err;
+      switch (geo(nw, kw).KC) {
+        case 4: err = launch_bwd<XT, 4, WANT_DX>(x, m3, g, dx, part, carry, L, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        case 8: err = launch_bwd<XT, 8, WANT_DX>(x, m3, g, dx, part, carry, L, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        case 16: err = launch_bwd<XT, 16, WANT_DX>(x, m3, g, dx, part, carry, L, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+        default: err = launch_bwd<XT, 32, WANT_DX>(x, m3, g, dx, part, carry, L, B, nw, dp1, kw, N, n0, K, ks, first, last, s); break;
+      }
+      if (err != cudaSuccess) return err;
+    }
   }
+  return cudaSuccess;
+}
+
+// launches of a call (kind as fits()): one per slice
+long long launches(int N, int dp1, int K, int kind) {
+  const Slices sl = m3_slices(N, dp1, K, kind);
+  return (long long)((N + sl.nw - 1) / sl.nw) * ((K + sl.kw - 1) / sl.kw);
+}
+
+// floats of the carry a call needs: out's [B, K] where the forward slices
+// N, dx's [B, N] where the backward with dx slices K; else none
+long long carry_floats(long long B, int N, int dp1, int K, int kind) {
+  const Slices sl = m3_slices(N, dp1, K, kind);
+  if (kind == 0) return sl.nw < N ? B * K : 0;
+  return kind == 1 && sl.kw < K ? B * N : 0;
+}
+
+bool refused(int N, int dp1, int K, int kind) {
+  const Slices sl = m3_slices(N, dp1, K, kind);
+  return !fits(sl.nw, dp1, sl.kw, kind);
 }
 
 }  // namespace
 
 // Shared memory a block of the kernel takes at these sizes (kind 0: the
-// forward, 1: the backward with dx, 2: the weight-only backward): at its
-// widest tile that fits qkan_m3_smem_limit(), else at its narrowest (more
-// than the limit: the kernel does not take these sizes).  -1 for a shape
-// outside N >= 1, 1 <= dp1 <= 32, K >= 1.
+// forward, 1: the backward with dx, 2: the weight-only backward), at the
+// slice the entries launch (qkan_m3_slice_n x qkan_m3_slice_k) and its
+// widest tile: at most qkan_m3_smem_limit(), except past D+1 in the tens
+// of thousands, which no slice takes (the entries refuse it).  -1 for a
+// shape outside N, D+1, K >= 1.
 extern "C" long long qkan_m3_smem_bytes(int N, int dp1, int K, int kind) {
   if (bad_shape(0, N, dp1, K) || kind < 0 || kind > 2) return -1;
-  const Geo G = geo(N, K);
+  const Slices sl = m3_slices(N, dp1, K, kind);
+  const Geo G = geo(sl.nw, sl.kw);
   if (kind == 0) {
-    const int nt = fwd_threads(N, dp1, K);
-    return fwd_bytes(N, dp1, G, nt ? nt : 32);
+    const int nt = fwd_threads(sl.nw, dp1, sl.kw);
+    return fwd_bytes(sl.nw, dp1, G, nt ? nt : 32);
   }
   const int want_dx = kind == 1;
-  const int tr = bwd_tile_rows(N, dp1, K, want_dx);
-  return bwd_bytes(N, dp1, G, tr ? tr : 32, want_dx);
+  const int tr = bwd_tile_rows(sl.nw, dp1, sl.kw, want_dx);
+  return bwd_bytes(sl.nw, dp1, G, tr ? tr : 32, want_dx);
 }
 
 extern "C" long long qkan_m3_smem_limit() { return SMEM_LIMIT; }
 
+// The slice of M3 a launch takes (m3_slices): features and columns (0
+// outside the domain).
+extern "C" int qkan_m3_slice_n(int N, int dp1, int K, int kind) {
+  if (bad_shape(0, N, dp1, K) || kind < 0 || kind > 2) return 0;
+  return m3_slices(N, dp1, K, kind).nw;
+}
+extern "C" int qkan_m3_slice_k(int N, int dp1, int K, int kind) {
+  if (bad_shape(0, N, dp1, K) || kind < 0 || kind > 2) return 0;
+  return m3_slices(N, dp1, K, kind).kw;
+}
+
+// Kernel launches of one call of kind `kind` (not counting the dM pass).
+extern "C" long long qkan_m3_launches(int N, int dp1, int K, int kind) {
+  if (bad_shape(0, N, dp1, K) || kind < 0 || kind > 2) return 0;
+  return launches(N, dp1, K, kind);
+}
+
+// Bytes of the f32 carry one call of kind `kind` needs (0: none).
+extern "C" long long qkan_m3_carry_bytes(long long B, int N, int dp1, int K,
+                                         int kind) {
+  if (bad_shape(B, N, dp1, K) || kind < 0 || kind > 2) return 0;
+  return 4 * carry_floats(B, N, dp1, K, kind);
+}
+
 // Blocks of a backward call, the leading dimension of its partials
-// [nblk, dp1, N, K] f32 (0 outside the domain or the budget).
+// [nblk, dp1, N, K] f32 (0 outside the domain).
 extern "C" int qkan_m3_bwd_blocks(long long B, int N, int dp1, int K,
                                   int want_dx) {
-  if (bad_shape(B, N, dp1, K) || B < 1 ||
-      bwd_tile_rows(N, dp1, K, want_dx) == 0) {
+  if (bad_shape(B, N, dp1, K) || B < 1 || refused(N, dp1, K, want_dx ? 1 : 2)) {
     return 0;
   }
   return bwd_layout(B, N, dp1, K, want_dx).nblk;
 }
 
 // Forward: x [B, N] f32 (x_is_bf16 = 0) or bf16 (1); m3 [dp1, N, K] f32;
-// out [B, K] in x's dtype.  All contiguous, B >= 1.  Returns the CUDA error
-// of the launch (0 on success), allocates nothing, does not synchronise.
+// out [B, K] in x's dtype; carry: qkan_m3_carry_bytes(B, N, dp1, K, 0)
+// bytes (null when 0).  All contiguous, B >= 1.  Returns the CUDA error
+// of the launches (0 on success), allocates nothing, does not synchronise.
 extern "C" int qkan_m3_fwd(const void* x, const void* m3, void* out,
-                           long long B, int N, int dp1, int K, int x_is_bf16,
+                           void* carry, long long carry_bytes, long long B,
+                           int N, int dp1, int K, int x_is_bf16,
                            void* stream) {
-  if (bad_shape(B, N, dp1, K) || B < 1 || fwd_threads(N, dp1, K) == 0) {
+  if (bad_shape(B, N, dp1, K) || B < 1 || refused(N, dp1, K, 0) ||
+      carry_bytes < 4 * carry_floats(B, N, dp1, K, 0)) {
     return (int)cudaErrorInvalidValue;
   }
   const float* m = static_cast<const float*>(m3);
+  float* c = static_cast<float*>(carry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(x_is_bf16
-                   ? dispatch_fwd<__nv_bfloat16>(x, m, out, B, N, dp1, K, s)
-                   : dispatch_fwd<float>(x, m, out, B, N, dp1, K, s));
+                   ? run_fwd<__nv_bfloat16>(x, m, out, c, B, N, dp1, K, s)
+                   : run_fwd<float>(x, m, out, c, B, N, dp1, K, s));
 }
 
 // Backward pass: x [B, N] and g [B, K] in x's dtype, m3 [dp1, N, K] f32
 // (not read when want_dx = 0), dx [B, N] in x's dtype (null when want_dx =
 // 0), part: qkan_m3_bwd_blocks(...) x dp1 x N x K f32 of at least
-// part_bytes, which receives each block's dM partial; dm [dp1, N, K] f32,
-// or null.  Given dm, the fixed-order pass that sums the partials into it
-// is launched next on the same stream (one call a backward); else the
-// caller runs qkan_m3_dm_sum.  All contiguous, B >= 1.  Returns the CUDA
-// error of the launches (0 on success), allocates nothing, does not
-// synchronise.
+// part_bytes, which receives each block's dM partial, followed by the
+// carry of qkan_m3_carry_bytes(B, N, dp1, K, 1 or 2) bytes (part_bytes
+// counts both); dm [dp1, N, K] f32, or null.  Given dm, the fixed-order
+// pass that sums the partials into it is launched next on the same stream
+// (one call a backward); else the caller runs qkan_m3_dm_sum.  All
+// contiguous, B >= 1.  Returns the CUDA error of the launches (0 on
+// success), allocates nothing, does not synchronise.
 extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
                            void* dx, void* part, long long part_bytes,
                            long long B, int N, int dp1, int K, int x_is_bf16,
                            int want_dx, void* dm, void* stream) {
+  const int kind = want_dx ? 1 : 2;
   if (bad_shape(B, N, dp1, K) || B < 1 || (want_dx && dx == nullptr) ||
-      bwd_tile_rows(N, dp1, K, want_dx) == 0) {
+      refused(N, dp1, K, kind)) {
     return (int)cudaErrorInvalidValue;
   }
   const long long nblk = bwd_layout(B, N, dp1, K, want_dx).nblk;
-  if (part_bytes < nblk * dp1 * N * K * 4) return (int)cudaErrorInvalidValue;
+  const long long part_floats = nblk * dp1 * N * K;
+  if (part_bytes < 4 * (part_floats + carry_floats(B, N, dp1, K, kind))) {
+    return (int)cudaErrorInvalidValue;
+  }
   const float* m = static_cast<const float*>(m3);
   float* f = static_cast<float*>(part);
+  float* c = f + part_floats;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (x_is_bf16) {
-    err = want_dx ? dispatch_bwd<__nv_bfloat16, true>(x, m, g, dx, f, B, N, dp1, K, s)
-                  : dispatch_bwd<__nv_bfloat16, false>(x, m, g, dx, f, B, N, dp1, K, s);
+    err = want_dx ? run_bwd<__nv_bfloat16, true>(x, m, g, dx, f, c, B, N, dp1, K, s)
+                  : run_bwd<__nv_bfloat16, false>(x, m, g, dx, f, c, B, N, dp1, K, s);
   } else {
-    err = want_dx ? dispatch_bwd<float, true>(x, m, g, dx, f, B, N, dp1, K, s)
-                  : dispatch_bwd<float, false>(x, m, g, dx, f, B, N, dp1, K, s);
+    err = want_dx ? run_bwd<float, true>(x, m, g, dx, f, c, B, N, dp1, K, s)
+                  : run_bwd<float, false>(x, m, g, dx, f, c, B, N, dp1, K, s);
   }
   if (err != cudaSuccess || dm == nullptr) return (int)err;
   return (int)qkan::partial_sum(f, (long long)dp1 * N * K, (int)nblk,

@@ -33,8 +33,11 @@ Each function has two versions:
   the same library call (one call a backward; ``m3_dm_partial_sum`` runs
   it alone; ``ops.fused_layer.fixed_order_sum_reference`` is its plain
   version in its own order).  A CUDA tensor launches them or raises
-  (ValueError for an f64 tensor or an M3 over the kernels' shared-memory
-  budget): there is no fallback to the plain version.
+  (ValueError for an f64 tensor): there is no fallback to the plain
+  version.  Any M3 and any D+1: where a kernel's staging of M3 overflows
+  one block's shared memory, the entry runs it over slices of M3
+  (``m3_slices``: output columns first, then features), each a launch,
+  the sums that cross slices carried in f32 in launch order.
 
 ``qkan_layer_fused`` and ``qkan_layer_fused_dw`` are differentiable in x
 and M3 through one ``torch.autograd.Function``: the backward runs K13 when
@@ -44,7 +47,8 @@ tests exercise the hand-written backward, not autograd's.
 is accepted for the JAX signature and ignored (it ran the TPU kernels in
 Pallas interpret mode).  Launch counts, one a launch, nothing at B = 0:
 ``qkan_layer_fused.launches`` (K12), ``.bwd_launches`` (K13),
-``.bwd_dw_launches`` (K14) and ``m3_dm_partial_sum.launches``.
+``.bwd_dw_launches`` (K14), one each per slice, and
+``m3_dm_partial_sum.launches``.
 """
 
 from __future__ import annotations
@@ -62,9 +66,47 @@ from qkan_implementation_tpu_torch.utils.platform import (
     tensor_device_type as _device_of,
 )
 
-_MAX_DP1 = 32
 # qkan_m3_smem_bytes's kinds
 _FWD, _BWD, _BWD_DW = 0, 1, 2
+# the constants of csrc/qkan_layer_m3.cu that m3_slices mirrors
+_THREADS, _DC, _SMEM_LIMIT = 256, 8, 232448
+
+
+def _geo(n: int, k: int) -> tuple:
+    """(KP, KC, XS, GS): the tile widths of ``geo()``."""
+    kp = 4 if k <= 4 else 8 if k <= 8 else 16 if k <= 16 else -(-k // 32) * 32
+    return kp, min(kp, 32), n | 1, kp if (kp // 4) % 2 else kp + 4
+
+
+def _fits(n: int, dp1: int, k: int, kind: int) -> bool:
+    """Whether a kernel of ``kind`` stages an M3 slice of n features and
+    k columns at its narrowest tile (32 rows) within a block."""
+    kp, kc, xs, gs = _geo(n, k)
+    m3 = dp1 * n * kp
+    if kind == _FWD:
+        need = 4 * (m3 + 32 * xs + 32 * (kc + 1))
+    else:
+        tiles = max(32 * (xs + gs), _THREADS * _DC * 4)
+        need = 4 * ((m3 if kind == _BWD else 0) + tiles)
+    return need <= _SMEM_LIMIT
+
+
+def m3_slices(n: int, dp1: int, k: int, kind: int) -> tuple:
+    """(features, columns) of the M3 slice one launch of ``kind`` (0 the
+    forward, 1 the backward with dx, 2 the weight-only backward) takes:
+    the plain mirror of ``m3_slices()`` in ``csrc/qkan_layer_m3.cu`` (C
+    entries ``qkan_m3_slice_n`` / ``qkan_m3_slice_k``).  All of M3 where it
+    fits; else the columns in steps of 32 down to 32, then 16, 8, 4; where
+    4 columns still overflow, the features halved (rounded up) until the
+    slice fits."""
+    kw = k
+    while kw > 4 and not _fits(n, dp1, kw, kind):
+        kw = (kw - 1) // 32 * 32 if kw > 32 else 16 if kw > 16 else \
+            8 if kw > 8 else 4
+    nw = n
+    while nw > 1 and not _fits(nw, dp1, kw, kind):
+        nw = (nw + 1) // 2
+    return nw, kw
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,39 +177,39 @@ def _check_args(x: torch.Tensor, m3: torch.Tensor, kind: int):
             f"and {tuple(m3.shape)}"
         )
     dp1, n, k = m3.shape
-    if not (1 <= dp1 <= _MAX_DP1 and n >= 1 and k >= 1):
+    if not (dp1 >= 1 and n >= 1 and k >= 1):
         raise ValueError(
-            f"the kernels take 1 <= D+1 <= {_MAX_DP1}, N >= 1 and K >= 1, "
-            f"got m3 {tuple(m3.shape)}"
+            f"the kernels take D+1, N and K >= 1, got m3 {tuple(m3.shape)}"
         )
     if not (x.is_contiguous() and m3.is_contiguous()):
         raise ValueError("x and m3 must be contiguous")
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
-    need, limit = lib.qkan_m3_smem_bytes(n, dp1, k, kind), lib.qkan_m3_smem_limit()
-    if need > limit:
-        raise ValueError(
-            f"m3 {tuple(m3.shape)} needs {need} bytes of shared memory a "
-            f"block, over the {limit} a block can have"
-        )
-    return lib, x.shape[0], n, dp1, k
+    launches = lib.qkan_m3_launches(n, dp1, k, kind)
+    return lib, x.shape[0], n, dp1, k, launches
 
 
 def _launch_fwd(x: torch.Tensor, m3: torch.Tensor) -> torch.Tensor:
-    """K12; counts its one launch, nothing at B = 0."""
-    lib, b, n, dp1, k = _check_args(x, m3, _FWD)
+    """K12; counts its launches (one a slice of M3), nothing at B = 0."""
+    lib, b, n, dp1, k, launches = _check_args(x, m3, _FWD)
     out = torch.empty((b, k), dtype=x.dtype, device=x.device)
     if b == 0:
         return out
+    # out's f32 sums carried across feature slices, where there are some
+    carry_bytes = (lib.qkan_m3_carry_bytes(b, n, dp1, k, _FWD)
+                   if launches > 1 else 0)
+    carry = (torch.empty(carry_bytes, dtype=torch.uint8, device=x.device)
+             if carry_bytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.qkan_m3_fwd(
-            x.data_ptr(), m3.data_ptr(), out.data_ptr(), b, n, dp1, k,
-            int(x.dtype == torch.bfloat16), stream,
+            x.data_ptr(), m3.data_ptr(), out.data_ptr(),
+            carry.data_ptr() if carry is not None else None, carry_bytes, b,
+            n, dp1, k, int(x.dtype == torch.bfloat16), stream,
         )
     _raise_on_error(lib, err, "qkan_m3_fwd")
-    _count(qkan_layer_fused, "launches")
+    _count(qkan_layer_fused, "launches", launches)
     return out
 
 
@@ -176,8 +218,10 @@ def _bwd_pass(x, m3, g, want_dx: bool, finish: bool = False):
     [nblk, D+1, N, K] f32 or None at B = 0, dM or None).  With ``finish``
     the same library call launches the fixed-order pass too (counted on
     ``m3_dm_partial_sum.launches``), into dM [D+1, N, K] f32, a tensor of
-    its own; at B = 0 dM is zeros and nothing launches."""
-    lib, b, n, dp1, k = _check_args(x, m3, _BWD if want_dx else _BWD_DW)
+    its own; at B = 0 dM is zeros and nothing launches.  Counts one launch
+    a slice of M3 (``m3_slices``)."""
+    kind = _BWD if want_dx else _BWD_DW
+    lib, b, n, dp1, k, launches = _check_args(x, m3, kind)
     g = g.to(x.dtype).contiguous()
     if g.device != x.device or tuple(g.shape) != (b, k):
         raise ValueError(
@@ -188,20 +232,25 @@ def _bwd_pass(x, m3, g, want_dx: bool, finish: bool = False):
     if b == 0:
         return dx, None, torch.zeros_like(m3) if finish else None
     nblk = lib.qkan_m3_bwd_blocks(b, n, dp1, k, int(want_dx))
-    part = torch.empty((nblk, dp1, n, k), dtype=torch.float32,
-                       device=x.device)
+    # the partials, then dx's f32 sums carried across column slices
+    carry = (lib.qkan_m3_carry_bytes(b, n, dp1, k, kind) // 4
+             if launches > 1 else 0)
+    buf = torch.empty(nblk * dp1 * n * k + carry, dtype=torch.float32,
+                      device=x.device)
+    part = buf[: nblk * dp1 * n * k].view(nblk, dp1, n, k)
     dm = (torch.empty((dp1, n, k), dtype=torch.float32, device=x.device)
           if finish else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.qkan_m3_bwd(
             x.data_ptr(), m3.data_ptr(), g.data_ptr(),
-            dx.data_ptr() if want_dx else None, part.data_ptr(),
-            part.numel() * 4, b, n, dp1, k, int(x.dtype == torch.bfloat16),
+            dx.data_ptr() if want_dx else None, buf.data_ptr(),
+            buf.numel() * 4, b, n, dp1, k, int(x.dtype == torch.bfloat16),
             int(want_dx), dm.data_ptr() if finish else None, stream,
         )
     _raise_on_error(lib, err, "qkan_m3_bwd")
-    _count(qkan_layer_fused, "bwd_launches" if want_dx else "bwd_dw_launches")
+    _count(qkan_layer_fused, "bwd_launches" if want_dx else "bwd_dw_launches",
+           launches)
     if finish:
         _count(m3_dm_partial_sum, "launches")
     return dx, part, dm

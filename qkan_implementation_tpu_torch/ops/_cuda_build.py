@@ -131,10 +131,22 @@ def load_library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            # the forwards take a workspace (or null) for their feature
+            # splits' partials
             lib.qkan_fused_dw_fwd.argtypes = [
-                p, p, p, i, i, i, i, i, i, i, p,
+                p, p, p, p, ll, i, i, i, i, i, i, i, p,
             ]
-            lib.qkan_fused_fwd.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            lib.qkan_fused_fwd.argtypes = [
+                p, p, p, p, ll, i, i, i, i, i, i, p,
+            ]
+            lib.qkan_fused_fwd_workspace_bytes.argtypes = [i, i, i, i]
+            lib.qkan_fused_fwd_workspace_bytes.restype = ll
+            lib.qkan_fused_fwd_tensor_cores.argtypes = [i, i, i, i]
+            lib.qkan_fused_fwd_tensor_cores.restype = i
+            lib.qkan_fused_fwd_splits.argtypes = [i, i, i, i]
+            lib.qkan_fused_fwd_splits.restype = i
+            lib.qkan_fused_bwd_col_slices.argtypes = [i]
+            lib.qkan_fused_bwd_col_slices.restype = i
             lib.qkan_fused_bwd_workspace_bytes.argtypes = [i, i, i, i, i]
             lib.qkan_fused_bwd_workspace_bytes.restype = ll
             lib.qkan_fused_bwd_row_blocks.argtypes = [i, i, i, i]
@@ -162,6 +174,8 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_step_row_blocks.restype = i
             lib.qkan_fused_step_tensor_cores.argtypes = [i, i, i]
             lib.qkan_fused_step_tensor_cores.restype = i
+            lib.qkan_fused_step_col_slice.argtypes = [i, i, i]
+            lib.qkan_fused_step_col_slice.restype = i
             lib.qkan_fused_step_partial_sum.argtypes = [
                 p, ll, p, i, i, i, i, p,
             ]
@@ -180,7 +194,15 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_m3_smem_limit.restype = ll
             lib.qkan_m3_bwd_blocks.argtypes = [ll, i, i, i, i]
             lib.qkan_m3_bwd_blocks.restype = i
-            lib.qkan_m3_fwd.argtypes = [p, p, p, ll, i, i, i, i, p]
+            lib.qkan_m3_slice_n.argtypes = [i, i, i, i]
+            lib.qkan_m3_slice_n.restype = i
+            lib.qkan_m3_slice_k.argtypes = [i, i, i, i]
+            lib.qkan_m3_slice_k.restype = i
+            lib.qkan_m3_launches.argtypes = [i, i, i, i]
+            lib.qkan_m3_launches.restype = ll
+            lib.qkan_m3_carry_bytes.argtypes = [ll, i, i, i, i]
+            lib.qkan_m3_carry_bytes.restype = ll
+            lib.qkan_m3_fwd.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
             lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i,
                                         i, p, p]
             lib.qkan_m3_dm_sum.argtypes = [p, p, i, ll, p]

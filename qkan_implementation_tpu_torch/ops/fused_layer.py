@@ -27,14 +27,29 @@ Each function has two versions:
   never writes the [B, dp1*in] basis to device memory.  A CUDA tensor
   launches it or raises: there is no fallback to the plain version.
 
+Any width T and any dp1.  The forward takes them in one launch (column
+tiles across its grid, degrees in chunks with the recurrence carried);
+where its grid splits the features, the feature splits' partial outs go
+to a workspace and the same library call adds them with the fixed-order
+pass of ``csrc/partial_sum.cu`` (``fused_fwd_plan``).  S is a function of
+(B, in, dp1, T), so a row's out has the same bits on every run and card
+at one B but may differ in its last bits between batch sizes (the
+features are added in S groups): at the flagship's layer 0 S is 49 at B
+64, 4 at B 4096 and 1 past B 8448.  The TPU kernel and the CUDA-core
+kernel give a row the same bits at any B.  A backward runs
+column slices of 64 (``fused_col_slices``) and, within each, degree
+chunks, carrying dx's sum across them; the train step, where one launch
+does not take T, launches its CUDA-core kernel once a column slice
+(``fused_step_col_slice``) into one workspace.  Each is one library call.
+
 A backward (and the train step) writes per-block dW partials to a
-workspace and sums them with the fixed-order pass of
-``csrc/partial_sum.cu``, launched by the same library call: one call a
-backward.  The row blocks are a function of the sizes alone: K2/K4's
-``fused_bwd_layout``, K5's ``fused_step_layout`` (plain mirrors of the C
-layouts, which a GPU test holds equal).  ``fixed_order_sum_reference``
-is that pass's plain version in its own order (equal to it bit for
-bit); ``fused_bwd_partial_sum`` runs the pass alone over a workspace.
+workspace and sums them with that pass, launched by the same library
+call: one call a backward.  The row blocks are a function of the sizes
+alone: K2/K4's ``fused_bwd_layout``, K5's ``fused_step_layout``.  These
+and the plans above are plain mirrors of the C layouts, which a GPU test
+holds equal.  ``fixed_order_sum_reference`` is that pass's plain version
+in its own order (equal to it bit for bit); ``fused_bwd_partial_sum``
+runs the pass alone over a workspace.
 
 ``kan_layer_fused_dw`` and ``kan_layer_fused`` are differentiable in x and
 w2 through one ``torch.autograd.Function`` each: forward and backward both
@@ -42,9 +57,9 @@ run the kernel on a CUDA tensor and the plain version on a CPU tensor, so
 the CPU tests exercise the hand-written backward, not autograd's.
 
 Precision.  'high' and 'default' are FP32 products with FP32 sums: on
-the CUDA cores, and in the train step's tensor-core kernel as 3xTF32
-(each f32 operand split into two TF32 parts, three products summed in
-FP32: the counterpart of the TPU's bf16x3 split).  The recurrences run
+the CUDA cores, and in the tensor-core kernels (the forward's, the train
+step's) as 3xTF32 (each f32 operand split into two TF32 parts, three
+products summed in FP32: the counterpart of the TPU's bf16x3 split).  The recurrences run
 in x's dtype, so a bf16 x rounds tanh and every recurrence op to bf16.
 Then:
 
@@ -67,9 +82,6 @@ from qkan_implementation_tpu_torch.ops._cuda_build import (
 from qkan_implementation_tpu_torch.utils.platform import (
     tensor_device_type as _device_of,
 )
-
-_MAX_DP1 = 32
-_MAX_T = 64
 
 
 def _resolve_mode(precision: str) -> str:
@@ -255,6 +267,83 @@ _TC_ROWS, _TC_GRID, _TC_ACC, _TC_THREADS = 64, 264, 8, 256
 _TC_SMEM_MAX = 232448      # a block's shared memory on sm_90
 _PS_SMALL_NBLK, _PS_MAX_SEGMENTS, _PS_SEGMENT_LOADS = 32, 32, 16
 _PS_FILL_THREADS = 132 * 256
+_COL_SLICE = 64            # columns of a backward launch, and of a step's
+_STEP_STAGE_BYTES, _STEP_WARPS = 96 * 1024, 8
+# the forward's plan (fwd_plan and fwd_tc in csrc/fused_dw_fwd.cu)
+_FWD_ROWS, _FWD_GRID, _FWD_CC_MAX_IN = 64, 264, 16
+
+
+def _pad_t(t_dim: int) -> int:
+    """T padded to the CUDA-core kernels' register tile (``pad_t``)."""
+    for p in (4, 8, 12, 16, 32):
+        if t_dim <= p:
+            return p
+    return 64
+
+
+def fused_fwd_plan(b: int, n: int, dp1: int, t_dim: int) -> tuple:
+    """(tensor cores, feature splits S, features a chunk) of a forward
+    (K1/K3) at these sizes: the plain mirror of ``fwd_tc`` and
+    ``fwd_plan`` in ``csrc/fused_dw_fwd.cu`` (C entries
+    ``qkan_fused_fwd_tensor_cores``, ``qkan_fused_fwd_splits``).  The
+    CUDA-core kernel takes the narrow layers (in <= 16) where it takes the
+    shape (dp1 <= 32, T <= 64), S = 1, no chunks; the tensor-core kernel
+    the rest, over (64-row tiles) x (column tiles of up to 64) x S, S =
+    264 // (row tiles x column tiles) clamped to [1, feature chunks]: a
+    function of the sizes alone.  Chunks are 8 or 16 features at in <= 8
+    or 16, else 32, or 16 past 32 features where 32-feature chunks would
+    cap S short of 264 // (row tiles x column tiles).  Past S = 1 the partials take S * B
+    * T floats of workspace."""
+    if dp1 <= 32 and t_dim <= 64 and n <= _FWD_CC_MAX_IN:
+        return False, 1, 0
+    n8 = -(-min(t_dim, 64) // 8)
+    tn = 8 * (1 if n8 <= 1 else 2 if n8 <= 2 else 4 if n8 <= 4 else 8)
+    want = _FWD_GRID // (-(-b // _FWD_ROWS) * -(-t_dim // tn))
+    fc = (8 if n <= 8 else 16 if n <= 16 or (n > 32 and want > -(-n // 32))
+          else 32)
+    return True, max(min(want, -(-n // fc)), 1), fc
+
+
+def fused_col_slices(t_dim: int) -> list:
+    """The column slices [c0, c1) a backward (K2/K4) launches over, in
+    order: 64 columns each, the last the rest (C entry
+    ``qkan_fused_bwd_col_slices`` counts them)."""
+    return [(c0, min(c0 + _COL_SLICE, t_dim))
+            for c0 in range(0, t_dim, _COL_SLICE)]
+
+
+def fused_bwd_launches(dp1: int, t_dim: int) -> int:
+    """Kernel launches of one backward call: each column slice's degree
+    chunks, DC = 64 // (the slice's padded width) degrees a chunk (the
+    plain mirror of ``qkan_fused_bwd_launches``)."""
+    total = 0
+    for c0, c1 in fused_col_slices(t_dim):
+        tp = _pad_t(c1 - c0)
+        dc = 1 if tp >= 64 else 64 // tp
+        total += -(-(dp1 - 1) // dc) if dp1 > 1 else 1
+    return total
+
+
+def _step_stage_bytes(dp1: int, tp: int, chunk: int) -> int:
+    return (_GROWS * (chunk + 1) + dp1 * chunk * tp) * 4
+
+
+def fused_step_col_slice(n: int, dp1: int, t_dim: int) -> int:
+    """Columns of one launch of a train step (K5): T where the
+    tensor-core kernel takes the sizes, else the widest of T (up to 64),
+    64, 32, 16, 12, 8, 4 whose CUDA-core staging fits 96 KB at a chunk of
+    8 features; failing that, at a chunk of 1; 0 where nothing fits.  The
+    plain mirror of ``step_cols`` in ``csrc/fused_dw_bwd.cu`` (C entry
+    ``qkan_fused_step_col_slice``)."""
+    if fused_step_tensor_cores(n, dp1, t_dim):
+        return t_dim
+    top = min(t_dim, _COL_SLICE)
+    for chunk in (_STEP_WARPS, 1):
+        for w in (top, 64, 32, 16, 12, 8, 4):
+            if (w <= top and _step_stage_bytes(dp1, _pad_t(w), chunk)
+                    <= _STEP_STAGE_BYTES):
+                return w
+    return 0
 
 
 def partial_sum_segments(nblk: int, per: int) -> int:
@@ -295,10 +384,10 @@ def fused_step_tensor_cores(n: int, dp1: int, t_dim: int) -> bool:
     """Whether the train step at these sizes runs on the tensor cores
     (``fused_step_kernel_tc``): the plain mirror of ``tc_shape()`` in
     ``csrc/fused_dw_bwd.cu`` (C entry ``qkan_fused_step_tensor_cores``).
-    It takes dp1 >= 2 where a block's 8 warps hold all of dW in registers
-    (mpw * nt <= 8 (m16, n8) tiles a warp, nt the n8-tiles of T and mpw
-    the m16-tiles of K = in*(dp1-1) over 8 warps, each as 1, 2, 4 or 8;
-    K <= 1024) and a 64-row tile's shared memory fits;
+    It takes dp1 >= 2 and T <= 64 where a block's 8 warps hold all of dW
+    in registers (mpw * nt <= 8 (m16, n8) tiles a warp, nt the n8-tiles
+    of T and mpw the m16-tiles of K = in*(dp1-1) over 8 warps, each as 1,
+    2, 4 or 8; K <= 1024) and a 64-row tile's shared memory fits;
     other shapes (the flagship's in = 784, dp1 = 1) run the CUDA-core
     kernel."""
     n8 = -(-t_dim // 8)
@@ -312,8 +401,8 @@ def fused_step_tensor_cores(n: int, dp1: int, t_dim: int) -> bool:
     smem = (4 * (_TC_ROWS * s + kp * tn + _TC_ROWS * tn + tn + 32 * tn
                  + _TC_THREADS + 64 * tn)
             + 2 * xstage)
-    return (dp1 >= 2 and k <= 1024 and mpw * nt <= _TC_ACC
-            and smem <= _TC_SMEM_MAX)
+    return (dp1 >= 2 and t_dim <= _COL_SLICE and k <= 1024
+            and mpw * nt <= _TC_ACC and smem <= _TC_SMEM_MAX)
 
 
 def fused_step_layout(b: int, n: int, dp1: int, t_dim: int) -> tuple:
@@ -353,10 +442,10 @@ def _check_layer_args(x, w2, dp1):
         raise ValueError(
             f"w2 has {w2.shape[0]} rows, expected dp1*in = {dp1}*{n}"
         )
-    if not 1 <= dp1 <= _MAX_DP1 or not 1 <= t_dim <= _MAX_T or n < 1:
+    if dp1 < 1 or t_dim < 1 or n < 1:
         raise ValueError(
-            f"the kernel takes 1 <= dp1 <= {_MAX_DP1}, 1 <= T <= {_MAX_T} "
-            f"and in >= 1, got dp1={dp1}, T={t_dim}, in={n}"
+            f"the kernels take dp1, T and in >= 1, got dp1={dp1}, "
+            f"T={t_dim}, in={n}"
         )
     if not (x.is_contiguous() and w2.is_contiguous()):
         raise ValueError("x and w2 must be contiguous")
@@ -370,7 +459,10 @@ _COUNTER_OF: dict = {}
 
 def _launch_fwd(entry: str, x, w2, dp1, apply_tanh, extra: tuple):
     """Run a forward kernel (``qkan_fused_dw_fwd`` or ``qkan_fused_fwd``)
-    and count its one launch; a B = 0 input launches and counts nothing."""
+    and count its one launch; where the kernel splits the features (a
+    workspace of partials), the same library call launches the
+    fixed-order pass too, counted on ``fused_bwd_partial_sum.launches``.
+    A B = 0 input launches and counts nothing."""
     b, n, t_dim = _check_layer_args(x, w2, dp1)
     out = torch.empty((b, t_dim), dtype=torch.float32, device=x.device)
     if b == 0:
@@ -378,15 +470,21 @@ def _launch_fwd(entry: str, x, w2, dp1, apply_tanh, extra: tuple):
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
+    ws_bytes = lib.qkan_fused_fwd_workspace_bytes(b, n, dp1, t_dim)
+    ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=x.device)
+          if ws_bytes else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, entry)(
-            x.data_ptr(), w2.data_ptr(), out.data_ptr(), b, n, dp1, t_dim,
-            int(x.dtype == torch.bfloat16), *extra, int(bool(apply_tanh)),
-            stream,
+            x.data_ptr(), w2.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, ws_bytes, b, n, dp1,
+            t_dim, int(x.dtype == torch.bfloat16), *extra,
+            int(bool(apply_tanh)), stream,
         )
     _raise_on_error(lib, err, entry)
     _count(*_COUNTER_OF[entry])
+    if ws is not None:
+        _count(fused_bwd_partial_sum, "launches")
     return out
 
 
@@ -567,9 +665,12 @@ def kan_layer_fused_dw(
     differentiable in x and w2.  A CPU tensor runs the plain versions; a
     CUDA tensor launches the kernels (built from ``csrc/`` at first use),
     and each wrapper counts where it launches: a forward adds one to
-    ``kan_layer_fused_dw.launches``, a backward one per degree chunk (one
-    where dp1 - 1 degrees fit in registers, as at the flagship) to
-    ``kan_layer_fused_dw.bwd_launches``.  B = 0 launches nothing.
+    ``kan_layer_fused_dw.launches``, a backward one per degree chunk of
+    each column slice of 64 (one where T <= 64 and dp1 - 1 degrees fit in
+    registers, as at the flagship) to ``kan_layer_fused_dw.bwd_launches``,
+    and where the forward splits the features (``fused_fwd_plan``) it
+    adds one to ``fused_bwd_partial_sum.launches``.  Any T and dp1 >= 1.
+    B = 0 launches nothing.
     """
     if torch.is_grad_enabled() and (x.requires_grad or w2.requires_grad):
         return _FusedDW.apply(x, w2, dp1, apply_tanh, precision)
@@ -697,10 +798,17 @@ def _step_pass(x, w2, dp1, y, loss, apply_tanh, finish: bool = False):
     """K5 on x's card: (loss, the workspace of dW partials, dW or None).
     With ``finish`` the same library call launches the fixed-order pass
     too, into dW [dp1*in, T] f32.  The loss and dW are tensors of their
-    own: keeping them does not keep the workspace.  Counts
-    ``kan_train_step_fused.launches`` and, with ``finish``,
+    own: keeping them does not keep the workspace.  Counts one
+    ``kan_train_step_fused.launches`` a column slice
+    (``fused_step_col_slice``) and, with ``finish``, one
     ``fused_bwd_partial_sum.launches``."""
     b, n, t_dim = _check_layer_args(x, w2, dp1)
+    width = fused_step_col_slice(n, dp1, t_dim)
+    if width == 0:
+        raise ValueError(
+            f"no train-step launch stages dp1={dp1} (its CUDA-core kernel "
+            f"stages {_STEP_STAGE_BYTES} bytes at most)"
+        )
     if loss == "mse":
         y = y.to(torch.float32).contiguous()
         if y.device != x.device or tuple(y.shape) != (b, t_dim):
@@ -731,7 +839,7 @@ def _step_pass(x, w2, dp1, y, loss, apply_tanh, finish: bool = False):
             loss_scale, dw.data_ptr() if finish else None, stream,
         )
     _raise_on_error(lib, err, "qkan_fused_step")
-    _count(kan_train_step_fused, "launches")
+    _count(kan_train_step_fused, "launches", -(-t_dim // width))
     if finish:
         _count(fused_bwd_partial_sum, "launches")
     return loss_out, ws, dw
@@ -774,8 +882,11 @@ def kan_train_step_fused(
     layer 0, dp1 = 1).
 
     Any B >= 1 is taken: the kernel masks the rows past B, so nothing is
-    padded and 'mse' is not biased.  ``tile_b`` is accepted for the JAX
-    signature and ignored (it set the TPU's batch tile).
+    padded and 'mse' is not biased.  Any T and dp1 >= 1: past what one
+    launch takes, the library call launches the CUDA-core kernel once a
+    column slice (``fused_step_col_slice``), each counted.
+    ``tile_b`` is accepted for the JAX signature and ignored (it set the
+    TPU's batch tile).
     """
     del tile_b
     _check_step_args(x, y, loss, precision)

@@ -307,27 +307,106 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     x, w2 = _inputs(0, 8, 16, 3, 4, True, torch.float32, cuda)
     g = torch.ones((8, 4), device=cuda)
     for bwd in (_fused_dw_bwd, _fused_bwd):
-        with pytest.raises(ValueError, match="dp1 <= 32"):
-            bwd(torch.zeros(8, 1, device=cuda),
-                torch.zeros(33, 4, device=cuda), g, 33, True, "high")
-        with pytest.raises(ValueError, match="T <= 64"):
-            bwd(x, torch.zeros(48, 65, device=cuda),
-                torch.ones((8, 65), device=cuda), 3, True, "high")
         with pytest.raises(ValueError, match="g must be"):
             bwd(x, w2, g[:, :3], 3, True, "high")
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             bwd(x.double(), w2, g, 3, True, "high")
     with pytest.raises(ValueError, match="'high' or 'default'"):
         kan_layer_fused(x, w2, 3, True, "bf16")
-    with pytest.raises(ValueError, match="T <= 64"):
-        kan_layer_fused(x, torch.zeros(48, 65, device=cuda), 3)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kan_layer_fused_dw(x.double(), w2, 3)
     with pytest.raises(ValueError, match="rows"):
         kan_layer_fused_dw(x, w2, 2)
     with pytest.raises(ValueError, match="contiguous"):
         kan_layer_fused_dw(x.t().contiguous().t(), w2, 3)
-    with pytest.raises(ValueError, match="T <= 64"):
-        kan_layer_fused_dw(x, torch.zeros(48, 65, device=cuda), 3)
     with pytest.raises(ValueError, match="on"):
         kan_layer_fused_dw(x, w2.cpu(), 3)
+    with pytest.raises(ValueError, match=">= 1"):
+        kan_layer_fused_dw(x, torch.zeros(0, 4, device=cuda), 0)
+
+
+# widths past one launch: T > 64 takes column tiles (forward) and slices
+# of 64 (backward), dp1 > 32 degree chunks with the recurrence carried;
+# these took a ValueError before the kernels took any width
+WIDE = [
+    (100, 24, 34, 96),   # two column tiles / slices, 33 degrees
+    (37, 16, 40, 130),   # three slices, the last 2 columns wide
+    (64, 784, 6, 65),    # the flagship's fan-in at one column past 64
+    (300, 3, 33, 64),    # dp1 past 32 at one slice
+]
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim", WIDE)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_layers_match_plain_with_gradients(cuda, b, n, dp1, t_dim,
+                                                 x_dtype):
+    """Forward and backward of both layers against their plain versions
+    (the bars above), twice with the same bits, through the wrappers'
+    autograd Functions."""
+    x, w2 = _inputs(b + n + dp1, b, n, dp1, t_dim, True, x_dtype, cuda)
+    g = torch.from_numpy(np.random.default_rng(b).normal(size=(b, t_dim))
+                         .astype(np.float32)).to(cuda)
+    cases = [(kan_layer_fused_dw, kan_layer_fused_dw_reference,
+              kan_layer_fused_dw_bwd_reference, "high"),
+             (kan_layer_fused_dw, kan_layer_fused_dw_reference,
+              kan_layer_fused_dw_bwd_reference, "bf16"),
+             (kan_layer_fused, kan_layer_fused_reference,
+              kan_layer_fused_bwd_reference, "high")]
+    for layer, ref, ref_bwd, precision in cases:
+        runs = []
+        for _ in range(2):
+            xl = x.clone().requires_grad_()
+            wl = w2.clone().requires_grad_()
+            out = layer(xl, wl, dp1, True, precision)
+            out.backward(g)
+            runs.append((out.detach(), xl.grad, wl.grad))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(*runs))
+        out, dx, dw = runs[0]
+        want_dx, want_dw = ref_bwd(x, w2, g, dp1, True, precision)
+        _assert_close(out, ref(x, w2, dp1, True, precision), precision)
+        _assert_close(dx, want_dx, precision)
+        _assert_close(dw, want_dw, precision)
+
+
+def test_plan_entries_equal_their_python_mirrors(cuda):
+    """The forward's route and feature splits (and its workspace), the
+    backward's column slices and launches: each C entry equals the plain
+    function the CPU tests reach, over a sweep of shapes."""
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+    from qkan_implementation_tpu_torch.ops.fused_layer import (
+        fused_bwd_launches, fused_col_slices, fused_fwd_plan)
+
+    lib = load_library()
+    for b in (1, 37, 64, 4096, 100000):
+        for n in (1, 5, 10, 16, 17, 32, 33, 784):
+            for dp1 in (1, 2, 6, 32, 33, 40):
+                for t_dim in (1, 10, 32, 64, 65, 130):
+                    tc, splits, _ = fused_fwd_plan(b, n, dp1, t_dim)
+                    assert lib.qkan_fused_fwd_tensor_cores(
+                        b, n, dp1, t_dim) == int(tc)
+                    assert lib.qkan_fused_fwd_splits(b, n, dp1, t_dim) == \
+                        splits
+                    assert lib.qkan_fused_fwd_workspace_bytes(
+                        b, n, dp1, t_dim) == (4 * splits * b * t_dim
+                                              if splits > 1 else 0)
+    for t_dim in (1, 4, 10, 33, 64, 65, 96, 130, 200):
+        assert lib.qkan_fused_bwd_col_slices(t_dim) == \
+            len(fused_col_slices(t_dim))
+        for dp1 in (1, 2, 6, 12, 33, 40, 100):
+            assert lib.qkan_fused_bwd_launches(dp1, t_dim) == \
+                fused_bwd_launches(dp1, t_dim)
+
+
+def test_split_forward_counts_its_pass(cuda):
+    """The flagship's layer 0 at B 64 splits its 784 features 49 ways:
+    one forward launch and one launch of the fixed-order pass, in one
+    library call; its narrow layers launch the forward alone."""
+    for n, passes in ((784, 1), (10, 0)):
+        x, w2 = _inputs(1, 64, n, 6, 10, True, torch.float32, cuda)
+        for layer in (kan_layer_fused_dw, kan_layer_fused):
+            before = (layer.launches, fused_bwd_partial_sum.launches)
+            layer(x, w2, 6)
+            assert (layer.launches - before[0],
+                    fused_bwd_partial_sum.launches - before[1]) == (1, passes)

@@ -219,18 +219,69 @@ def test_rejects_what_the_kernels_do_not_take(cuda):
         pl._launch_bwd(x, m3.to(torch.bfloat16), g, False)
     with pytest.raises(ValueError, match="expected x"):
         qkan_layer_fused(x, m3[:, :15])
-    with pytest.raises(ValueError, match="D\\+1 <= 32"):
-        qkan_layer_fused(x, torch.zeros(33, 16, 16, device=cuda))
     with pytest.raises(ValueError, match="g must be"):
         pl._launch_bwd(x, m3, g[:, :15], True)
-    # M3 [32, 64, 256] is 2 MB: over a block's shared memory for K12 and
-    # K13, which stage it; K14 stages no M3 and takes it
-    big = torch.zeros(32, 64, 256, device=cuda)
-    xb = torch.zeros(8, 64, device=cuda)
-    gb = torch.zeros(8, 256, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        qkan_layer_fused(xb, big)
-    with pytest.raises(ValueError, match="shared memory"):
-        pl._launch_bwd(xb, big, gb, True)
-    _, dm = pl._launch_bwd(xb, big, gb, False)
-    assert torch.equal(dm, torch.zeros_like(big))
+
+
+# M3s that took a ValueError before the kernels ran over slices of M3:
+# D+1 past 32, and M3s past a block's shared memory (K12 and K13 stage
+# M3; K14 stages none and takes them whole)
+WIDE = [
+    (40, 64, 128, 8),    # 256 KB of M3: K columns in slices
+    (33, 16, 16, 40),    # D+1 40
+    (50, 16, 16, 33),
+    (8, 64, 256, 32),    # 2 MB of M3
+    (20, 300, 8, 40),    # columns, then features in slices
+    (16, 2000, 4, 8),    # 4 columns still overflow: features in slices
+]
+
+
+@pytest.mark.parametrize("b,n,k,dp1", WIDE)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_m3_matches_plain_and_repeats_bits(cuda, b, n, k, dp1, x_dtype):
+    """K12, K13 and K14 over their slices of M3 against the plain versions,
+    gradients included, twice with the same bits; one launch a slice."""
+    x, m3, g = _inputs(b + n + k + dp1, b, n, k, dp1, x_dtype, cuda)
+    before = _counts()
+    out = qkan_layer_fused(x, m3)
+    dx, dm = pl._launch_bwd(x, m3, g, True)
+    _, dm_only = pl._launch_bwd(x, m3, g, False)
+    again = (qkan_layer_fused(x, m3), *pl._launch_bwd(x, m3, g, True),
+             pl._launch_bwd(x, m3, g, False)[1])
+    want_dx, want_dm = qkan_layer_fused_bwd_reference(x, m3, g, True)
+    torch.cuda.synchronize()
+    _held(out, qkan_layer_fused_reference(x, m3))
+    _held(dx, want_dx)
+    _held(dm, want_dm)
+    _held(dm_only, want_dm)
+    for a, c in zip((out, dx, dm, dm_only), again):
+        assert torch.equal(a, c)
+    launches = [int(np.prod([-(-full // w) for full, w in
+                             zip((n, k), pl.m3_slices(n, dp1, k, kind))]))
+                for kind in (0, 1, 2)]
+    assert _delta(before)[:3] == (2 * launches[0], 2 * launches[1],
+                                  2 * launches[2])
+
+
+def test_slice_entries_equal_their_python_mirrors(cuda):
+    """The slices each M3 entry launches over, its launches and carry, and
+    the shared memory at its slice, equal the plain functions."""
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    for n in (1, 3, 16, 64, 300, 2000):
+        for dp1 in (1, 2, 8, 32, 33, 40, 100):
+            for k in (1, 3, 16, 100, 128, 256):
+                for kind in (0, 1, 2):
+                    nw, kw = pl.m3_slices(n, dp1, k, kind)
+                    assert (lib.qkan_m3_slice_n(n, dp1, k, kind),
+                            lib.qkan_m3_slice_k(n, dp1, k, kind)) == (nw, kw)
+                    assert lib.qkan_m3_launches(n, dp1, k, kind) == \
+                        -(-n // nw) * -(-k // kw)
+                    assert lib.qkan_m3_smem_bytes(n, dp1, k, kind) <= \
+                        lib.qkan_m3_smem_limit()
+                    carry = (4 * 7 * k if kind == 0 and nw < n else
+                             4 * 7 * n if kind == 1 and kw < k else 0)
+                    assert lib.qkan_m3_carry_bytes(7, n, dp1, k, kind) == \
+                        carry

@@ -27,6 +27,7 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
     fused_bwd_fixed_order_reference,
     fused_bwd_layout,
     fused_bwd_partial_sum,
+    fused_step_col_slice,
     fused_step_layout,
     fused_step_tensor_cores,
     kan_train_step_fused,
@@ -171,8 +172,6 @@ def test_step_rejects_what_the_kernel_does_not_take(cuda):
         kan_train_step_fused(x, w2, 3, y=y.cpu(), loss="mse")
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         kan_train_step_fused(x.double(), w2, 3)
-    with pytest.raises(ValueError, match="T <= 64"):
-        kan_train_step_fused(x, torch.zeros(48, 65, device=cuda), 3)
     with pytest.raises(ValueError, match="rows"):
         kan_train_step_fused(x, w2, 2)
     with pytest.raises(ValueError, match="'high' or 'default'"):
@@ -215,6 +214,41 @@ def test_step_kernel_at_phase_12a_shapes(cuda, b, n, dp1, t_dim, tanh,
             got[1])
 
 
+# past one launch: column slices of 64 (T > 64), and at dp1 > 32 slices
+# narrow enough for the CUDA-core kernel's staging; these took a
+# ValueError before the step took any width
+WIDE = [
+    (100, 24, 34, 96, True),
+    (37, 16, 40, 130, True),
+    (64, 784, 6, 65, True),
+    (50, 3, 40, 130, False),   # in 3: the tensor cores take no slice
+    (20, 16, 800, 10, True),   # one launch at a chunk of one feature
+]
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim,tanh", WIDE)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_step_matches_plain(cuda, b, n, dp1, t_dim, tanh, x_dtype):
+    """The sliced step against the plain whole step, both losses, twice
+    with the same bits; one step launch a slice and one pass a call."""
+    x, w2, y = _inputs(b + dp1 + t_dim, b, n, dp1, t_dim, tanh, x_dtype,
+                       cuda)
+    width = fused_step_col_slice(n, dp1, t_dim)
+    slices = -(-t_dim // width)
+    for loss in ("sumsq", "mse"):
+        args = (x, w2, dp1, y if loss == "mse" else None, loss, tanh)
+        before = (kan_train_step_fused.launches,
+                  fused_bwd_partial_sum.launches)
+        got = kan_train_step_fused(*args)
+        assert (kan_train_step_fused.launches - before[0],
+                fused_bwd_partial_sum.launches - before[1]) == (slices, 1)
+        _assert_step_close(got, kan_train_step_fused_reference(*args))
+        again = kan_train_step_fused(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
 def test_layout_entries_equal_their_python_mirrors(cuda):
     """The C entries that fix K5's and K2's row blocks, the step's path,
     its workspace and the pass's segments equal the plain functions the
@@ -236,6 +270,11 @@ def test_layout_entries_equal_their_python_mirrors(cuda):
                     assert lib.qkan_fused_bwd_row_blocks(
                         b, n, dp1, t_dim) == fused_bwd_layout(
                             b, n, dp1, t_dim)[1]
+    for n in (1, 3, 10, 16, 784):
+        for dp1 in (1, 2, 6, 33, 40, 100, 800, 7000):
+            for t_dim in (1, 10, 64, 65, 96, 130):
+                assert lib.qkan_fused_step_col_slice(n, dp1, t_dim) == \
+                    fused_step_col_slice(n, dp1, t_dim)
     for nblk in (1, 2, 26, 32, 33, 256, 264, 547, 1000):
         for per in (0, 1, 3, 1792, 2048, 39200, 47040):
             assert lib.qkan_partial_sum_segments(nblk, per) == \
