@@ -26,11 +26,18 @@ Phases, each reported on its own lines:
    B in {1, 37, 64, 4096}, in in {784, 10}, every precision, tanh on and
    off, f32 and bf16 x, with bf16 controls, and the dW pass over each real
    workspace equal bit for bit to its plain version in its own order
-   (``fused_bwd_fixed_order_reference``); (6c) widths past one launch
+   (``fused_bwd_fixed_order_reference``), each K2/K4 line with its route
+   (tensor cores or CUDA cores) and feature chunk (``fused_bwd_plan``);
+   (6d) K2 and K4 ('high', f32 x) at every (in, T) of LAYER_SHAPES and B
+   64 and 4096 against their plain versions, twice with the same bits,
+   with their route and chunk, and the first 37 rows' dx bit-equal at B
+   37, 64 and 4096; (6c) widths past one launch
    (K1-K5 at x[256, 64], dp1 34, T 96; K12-K14 at D+1 8 / N 64 / K 128
    and at D+1 40) against their plain versions, twice with the same bits;
    then (6b) every fused-layer kernel's event ms, device µs, plain ms and
-   bound (FP32, and 3xTF32 where it runs on the tensor cores) at every
+   bound (FP32, and 3xTF32 where it runs on the tensor cores: the
+   forwards by ``fused_fwd_plan``, the backwards by ``fused_bwd_plan``,
+   with the route and chunk printed) at every
    (in, T) of LAYER_SHAPES and B 64 and 4096, and the dW pass at layer
    0, B = 4096 (26 partials) and 64 (2), held bit for bit to that plain
    version twice, then timed: event ms, device µs, plain ms and bound
@@ -730,10 +737,11 @@ def check_backward(device) -> dict:
                             want_dx, want_dw = ref(x, w2, g, DP1, tanh,
                                                    precision)
                             torch.cuda.synchronize()
+                            route = bwd_route(b, n, T, x_dtype, precision)
                             ex, _ = held(name + ".dx", dx, want_dx,
-                                         precision, **where)
+                                         precision, **where, **route)
                             ew, _ = held(name + ".dw", dw, want_dw,
-                                         precision, **where)
+                                         precision, **where, **route)
                             if precision == "high" and x_dtype == torch.float32:
                                 worst[name] = max(worst[name], ex, ew)
                             if precision == "bf16":
@@ -790,6 +798,62 @@ def check_backward(device) -> dict:
                         worst["fused_bwd_partial_sum"] = max(
                             worst["fused_bwd_partial_sum"], e5
                         )
+    return worst
+
+
+def bwd_route(b: int, n: int, t_dim: int, x_dtype=torch.float32,
+              precision: str = "high", dp1: int = DP1) -> dict:
+    """The route K2/K4 take at these sizes (``fused_bwd_plan``): tensor
+    cores or not, and the features a block takes (0 on the CUDA cores)."""
+    tc, chunk, _, _, nrb = fl.fused_bwd_plan(
+        b, n, dp1, t_dim, x_dtype == torch.bfloat16, precision == "bf16")
+    return dict(tensor_cores=tc, chunk=chunk, row_blocks=nrb)
+
+
+def check_backward_shapes(device) -> dict:
+    """Phase 6d: K2 ('high') and K4, f32 x, tanh on, at every (in, T) of
+    LAYER_SHAPES and B in LAYER_BATCHES: the route (which must be the
+    tensor cores) and chunk logged, twice with the same bits, each held
+    to its plain version; then the first 37 rows' dx of each at B 37, 64
+    and 4096 (one set of inputs, cut): the same bits, since the chunk and
+    the mma order are functions of (in, dp1, T).  Returns the worst error
+    of each."""
+    rng = np.random.default_rng(SEED + 21)
+    worst = {"fused_dw_bwd": 0.0, "fused_bwd": 0.0}
+    for n, t_dim in LAYER_SHAPES:
+        x, w2 = layer_inputs(rng, max(LAYER_BATCHES), n, True, "high",
+                             device, t_dim)
+        g = torch.from_numpy(rng.normal(size=(x.shape[0], t_dim))
+                             .astype(np.float32)).to(device)
+        for name, bwd, ref in (
+                ("fused_dw_bwd", _fused_dw_bwd,
+                 kan_layer_fused_dw_bwd_reference),
+                ("fused_bwd", _fused_bwd, kan_layer_fused_bwd_reference)):
+            for b in LAYER_BATCHES:
+                route = bwd_route(b, n, t_dim)
+                where = dict(shape=f"x[{b},{n}] T {t_dim}", **route)
+                if not route["tensor_cores"]:
+                    raise AssertionError(f"{name} {where}: not on the "
+                                         "tensor cores")
+                xb, gb = x[:b], g[:b]
+                got = bwd(xb, w2, gb, DP1, True, "high")
+                again = bwd(xb, w2, gb, DP1, True, "high")
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, c) for a, c in zip(got, again)):
+                    raise AssertionError(f"{name} {where}: two runs differ")
+                want = ref(xb, w2, gb, DP1, True, "high")
+                for part, a, w in zip((".dx", ".dw"), got, want):
+                    err, _ = held(name + part, a, w, "high", **where)
+                    worst[name] = max(worst[name], err)
+            rows = [bwd(x[:b], w2, g[:b], DP1, True, "high")[0][:37]
+                    for b in (37, 64, 4096)]
+            torch.cuda.synchronize()
+            same = all(torch.equal(rows[0], r) for r in rows[1:])
+            log("kernel", name=name, check="dx_rows_0_37_at_B_37_64_4096",
+                shape=f"in {n} T {t_dim}", same_bits=same)
+            if not same:
+                raise AssertionError(f"{name} in {n} T {t_dim}: a row's dx "
+                                     "moves with B")
     return worst
 
 
@@ -909,7 +973,8 @@ def kernel_cases(rng, device, b: int, n: int, t_dim: int = T) -> dict:
     3xTF32), the FP32 CUDA-core bound ms beside it where that differs,
     else None).  Phases 6b and 8 time the same calls; each call is one
     library call (a forward with its feature splits' pass; a backward
-    without its dW pass, which phase 6b times alone)."""
+    without its dW pass, which phase 6b times alone).  A backward on the
+    tensor cores (``fused_bwd_plan``) is bound as 3xTF32 too."""
     x, w2 = layer_inputs(rng, b, n, True, "high", device, t_dim)
     g = torch.from_numpy(rng.normal(size=(b, t_dim)).astype(np.float32))
     g = g.to(device)
@@ -919,6 +984,12 @@ def kernel_cases(rng, device, b: int, n: int, t_dim: int = T) -> dict:
     on_tc = fl.fused_fwd_plan(b, n, DP1, t_dim)[0]
     f_ms, f_by, _, f_fp32 = unit_bound(x_b + w_b + bt_b, mm, on_tc)
     fwd = ((f_ms, f_by), f_fp32 if on_tc else None)
+    # a backward reads x, g and w2 and writes dx and dW, and does two
+    # contractions: on the tensor cores where fused_bwd_plan sends it
+    bwd_tc = bwd_route(b, n, t_dim)["tensor_cores"]
+    k_ms, k_by, _, k_fp32 = unit_bound(2 * x_b + 2 * w_b + bt_b, 2 * mm,
+                                       bwd_tc)
+    bwd = ((k_ms, k_by), k_fp32 if bwd_tc else None)
     return {
         "fused_dw_fwd": (
             lambda: kan_layer_fused_dw(x, w2, DP1),
@@ -934,12 +1005,12 @@ def kernel_cases(rng, device, b: int, n: int, t_dim: int = T) -> dict:
             lambda: _bwd_pass("qkan_fused_dw_bwd", x, w2, g, DP1, True, (0,),
                               True),
             lambda: kan_layer_fused_dw_bwd_reference(x, w2, g, DP1),
-            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm), None,
+            None, *bwd,
         ),
         "fused_bwd": (
             lambda: _bwd_pass("qkan_fused_bwd", x, w2, g, DP1, True, (), True),
             lambda: kan_layer_fused_bwd_reference(x, w2, g, DP1),
-            None, bound(2 * x_b + 2 * w_b + bt_b, 2 * mm), None,
+            None, *bwd,
         ),
     }
 
@@ -963,12 +1034,16 @@ def time_all(device, card: str) -> dict:
                 l_ms = median_ms(lib) if lib is not None else None
                 kernels = device_per_call(kern)
                 dev = sum(us for _, us in kernels) if kernels else None
+                route = (bwd_route(b, n, t_dim) if "bwd" in name else
+                         dict(zip(("tensor_cores", "splits", "chunk"),
+                                  fl.fused_fwd_plan(b, n, DP1, t_dim))))
                 table[(name, n, t_dim, b)] = dict(
                     ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
                     bound_by=b_by, bound_fp32_ms=fp32_ms, device_us=dev,
-                    kernels={k[:48]: us for k, us in kernels},
+                    kernels={k[:48]: us for k, us in kernels}, **route,
                 )
                 log("time", kernel=name, shape=f"x[{b},{n}] T {t_dim}",
+                    **route,
                     kernel_ms=f"{k_ms:.4f}",
                     device_us="not measured" if dev is None else f"{dev:.3f}",
                     plain_ms=f"{p_ms:.4f}",
@@ -2524,8 +2599,10 @@ def time_step_backward_routes(card: str) -> dict:
     def two(entry, xx, w2, g, dp1, apply_tanh, extra, want_dx):
         dx, wsp, _ = _bwd_pass(entry, xx, w2, g, dp1, apply_tanh, extra,
                                want_dx)
-        return dx, fused_bwd_partial_sum(wsp, xx.shape[0], xx.shape[1], dp1,
-                                         w2.shape[1], want_dx)
+        return dx, fused_bwd_partial_sum(
+            wsp, xx.shape[0], xx.shape[1], dp1, w2.shape[1], want_dx,
+            x_bf16=xx.dtype == torch.bfloat16,
+            round_bf16=bool(extra and extra[0]))
 
     def window(route, steps: int = 30):
         fl._launch_bwd = route
@@ -2946,6 +3023,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         paths["serve"], _ = run_slice(device, Path(tmp))
         errs.update(check_backward(device))
+        for name, err in check_backward_shapes(device).items():
+            errs[name] = max(errs[name], err)
         wide_errs = check_wide(device)
         table = time_all(device, smi)
         pass_table = time_passes(pass_cases(device, "dw"), smi)
@@ -2983,9 +3062,11 @@ def main() -> int:
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
-        "fused_dw_bwd": ("csrc/fused_dw_bwd.cu", "ops/fused_layer.py:462"),
+        # the backwards' main-path kernel: the tensor-core one
+        "fused_dw_bwd": ("csrc/fused_dw_bwd_tc.cu",
+                         "ops/fused_layer.py:462"),
         "fused_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:117"),
-        "fused_bwd": ("csrc/fused_dw_bwd.cu", "ops/fused_layer.py:143"),
+        "fused_bwd": ("csrc/fused_dw_bwd_tc.cu", "ops/fused_layer.py:143"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():
@@ -3012,7 +3093,8 @@ def main() -> int:
                 f"x[{b},{n}] T {t_dim}": {
                     k: row[k] for k in ("ms", "device_us", "plain_ms",
                                         "bound_ms", "bound_by",
-                                        "bound_fp32_ms")}
+                                        "bound_fp32_ms", "tensor_cores",
+                                        "chunk")}
                 for (nm, n, t_dim, b), row in table.items() if nm == name},
         })
     # the two fixed-order passes, one kernel: the cross-block sums that the

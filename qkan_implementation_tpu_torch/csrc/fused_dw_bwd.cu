@@ -1,6 +1,14 @@
 // Fused FixedKAN layer backward for Hopper (sm_90a), and the fused
 // single-layer train step built on its workspace (entry qkan_fused_step,
-// described where it starts below).
+// described where it starts below).  The backward's entries launch one of
+// two kernels, chosen by the sizes, x's dtype and the mode alone
+// (bwd_tc_plan in fused_bwd_tc.cuh, C entry qkan_fused_bwd_tensor_cores):
+// fused_dw_bwd_kernel_tc (fused_dw_bwd_tc.cu: 3xTF32 on the tensor cores,
+// features split over the grid, one launch) at an f32 x in 'high' /
+// 'default' with dp1 >= 2, T <= 64 and few enough degrees (every layer of
+// the main path), and the CUDA-core kernel below for the rest (a bf16 x,
+// 'bf16', dp1 = 1, T > 64, more degrees).  -DQKAN_BWD_TC=0 sends every shape to the CUDA-core kernel
+// (tools/bwd_vs_old.py builds it so).
 //
 // Replaces two TPU kernels of qkan_implementation_tpu/ops/fused_layer.py:
 // _bwd_kernel_degreewise (entry qkan_fused_dw_bwd, the backward of
@@ -25,8 +33,9 @@
 // against 10 us of FP32 work at 67 TFLOP/s.  At the training batch of 64
 // it is under 1 us, and launch overhead sets the pace.
 //
-// Schedule.  The TPU grid runs in order, so its dW accumulator carries from
-// one step to the next; CUDA blocks run in parallel.  Here a block owns
+// The CUDA-core kernel.  The TPU grid runs in order, so its dW
+// accumulator carries from one step to the next; CUDA blocks run in
+// parallel.  Here a block owns
 // `rows` batch rows and up to 128 input features, one thread each.  A
 // thread keeps its feature's W_d row and its dW_d accumulators for a chunk
 // of DC degrees in registers (DC * TP of each, TP = T padded).  The block
@@ -56,6 +65,7 @@
 
 #include <type_traits>
 
+#include "fused_bwd_tc.cuh"
 #include "qkan_common.cuh"
 #include "tc_common.cuh"
 
@@ -114,6 +124,26 @@ Layout layout(int B, int in, int dp1, int T, int want_dx,
   L.part_floats = (size_t)L.nrb * (dp1 - 1) * in * T;
   L.gpart_floats = (size_t)L.nrb * T;
   L.dt_floats = (want_dx && bwd_launches(dp1, T) > 1) ? (size_t)B * in : 0;
+  return L;
+}
+
+// The layout of a backward on its route: the tensor-core kernel's row
+// blocks (bwd_tc_rows) where bwd_tc_plan takes the sizes, else layout().
+// Either way the workspace holds dW partials [nrb][dp1-1][in][T], then
+// colsum(g) partials [nrb][T], then (the CUDA-core kernel past one launch)
+// the carried dt.
+Layout bwd_layout(int B, int in, int dp1, int T, int want_dx, int x_is_bf16,
+                  int round_bf16) {
+  const qkan::BwdTcPlan p = qkan::bwd_tc_plan(in, dp1, T, x_is_bf16,
+                                              round_bf16);
+  if (!p.ok) return layout(B, in, dp1, T, want_dx);
+  const qkan::BwdTcRows r = qkan::bwd_tc_rows(B, in, dp1, T, p);
+  Layout L;
+  L.rows = r.rows;
+  L.nrb = r.nrb;
+  L.part_floats = (size_t)L.nrb * (dp1 - 1) * in * T;
+  L.gpart_floats = (size_t)L.nrb * T;
+  L.dt_floats = 0;
   return L;
 }
 
@@ -1289,7 +1319,8 @@ int run(const void* x, const void* w2, const void* g, void* dx, void* ws,
   if (bad_shape(B, in, dp1, T) || (want_dx && dx == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L = layout(B, in, dp1, T, want_dx);
+  const Layout L =
+      bwd_layout(B, in, dp1, T, want_dx, x_is_bf16, round_bf16);
   if (ws_bytes < 0 || (size_t)ws_bytes < workspace_bytes(L)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -1297,8 +1328,16 @@ int run(const void* x, const void* w2, const void* g, void* dx, void* ws,
   const float* gg = static_cast<const float*>(g);
   float* f = static_cast<float*>(ws);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const qkan::BwdTcPlan p =
+      qkan::bwd_tc_plan(in, dp1, T, x_is_bf16, round_bf16);
   cudaError_t err;
-  if (x_is_bf16) {
+  if (p.ok) {
+    err = qkan::fused_bwd_tc(static_cast<const float*>(x), w, gg,
+                             static_cast<float*>(dx), f, f + L.part_floats,
+                             B, in, dp1, T, p,
+                             qkan::BwdTcRows{L.rows, L.nrb}, apply_tanh,
+                             want_dx, s);
+  } else if (x_is_bf16) {
     err = round_bf16
               ? dispatch_tp<__nv_bfloat16, true>(x, w, gg, dx, f, L, B, in, dp1, T, apply_tanh, want_dx, s)
               : dispatch_tp<__nv_bfloat16, false>(x, w, gg, dx, f, L, B, in, dp1, T, apply_tanh, want_dx, s);
@@ -1314,23 +1353,49 @@ int run(const void* x, const void* w2, const void* g, void* dx, void* ws,
 }  // namespace
 
 // Bytes of workspace a backward call needs (dW partials, colsum partials
-// and, past one degree chunk, the carried dt).
+// and, the CUDA-core kernel past one degree chunk, the carried dt).  The
+// backward of the v1 entry passes round_bf16 = 0.
 extern "C" long long qkan_fused_bwd_workspace_bytes(int B, int in, int dp1,
-                                                    int T, int want_dx) {
+                                                    int T, int want_dx,
+                                                    int x_is_bf16,
+                                                    int round_bf16) {
   if (bad_shape(B, in, dp1, T)) return 0;
-  return (long long)workspace_bytes(layout(B, in, dp1, T, want_dx));
+  return (long long)workspace_bytes(
+      bwd_layout(B, in, dp1, T, want_dx, x_is_bf16, round_bf16));
 }
 
 // Row blocks of a backward call, the leading dimension of its partials.
-extern "C" int qkan_fused_bwd_row_blocks(int B, int in, int dp1, int T) {
+extern "C" int qkan_fused_bwd_row_blocks(int B, int in, int dp1, int T,
+                                         int x_is_bf16, int round_bf16) {
   if (bad_shape(B, in, dp1, T)) return 0;
-  return layout(B, in, dp1, T, 0).nrb;
+  return bwd_layout(B, in, dp1, T, 0, x_is_bf16, round_bf16).nrb;
+}
+
+// 1 where a backward at these sizes runs the tensor-core kernel
+// (bwd_tc_plan), 0 where it runs the CUDA-core one.
+extern "C" int qkan_fused_bwd_tensor_cores(int in, int dp1, int T,
+                                           int x_is_bf16, int round_bf16) {
+  if (bad_shape(1, in, dp1, T)) return 0;
+  return qkan::bwd_tc_plan(in, dp1, T, x_is_bf16, round_bf16).ok ? 1 : 0;
+}
+
+// Input features a block of the tensor-core kernel takes (16 or 32; 0 on
+// the CUDA-core route).
+extern "C" int qkan_fused_bwd_feature_chunk(int in, int dp1, int T,
+                                            int x_is_bf16, int round_bf16) {
+  if (bad_shape(1, in, dp1, T)) return 0;
+  const qkan::BwdTcPlan p =
+      qkan::bwd_tc_plan(in, dp1, T, x_is_bf16, round_bf16);
+  return p.ok ? p.fc : 0;
 }
 
 // Kernel launches that one call of either entry below makes when it
-// succeeds: one per degree chunk of each column slice.
-extern "C" int qkan_fused_bwd_launches(int dp1, int T) {
-  if (bad_shape(1, 1, dp1, T)) return 0;
+// succeeds: one on the tensor cores; on the CUDA cores one per degree
+// chunk of each column slice.
+extern "C" int qkan_fused_bwd_launches(int in, int dp1, int T, int x_is_bf16,
+                                       int round_bf16) {
+  if (bad_shape(1, in, dp1, T)) return 0;
+  if (qkan::bwd_tc_plan(in, dp1, T, x_is_bf16, round_bf16).ok) return 1;
   return bwd_launches(dp1, T);
 }
 
@@ -1370,14 +1435,15 @@ extern "C" int qkan_fused_bwd(const void* x, const void* w2, const void* g,
 }
 
 // The fixed-order pass alone, over a workspace that an entry above filled
-// for the same (B, in, dp1, T, want_dx) (a train step's: below): dw
-// [dp1*in, T] f32, in the order of qkan_partial_sum_segments(nrb,
-// (dp1-1)*in*T).
+// for the same (B, in, dp1, T, want_dx, x_is_bf16, round_bf16) (a train
+// step's: below): dw [dp1*in, T] f32, in the order of
+// qkan_partial_sum_segments(nrb, (dp1-1)*in*T).
 extern "C" int qkan_fused_bwd_partial_sum(const void* ws, long long ws_bytes,
                                           void* dw, int B, int in, int dp1,
-                                          int T, int want_dx, void* stream) {
+                                          int T, int want_dx, int x_is_bf16,
+                                          int round_bf16, void* stream) {
   if (bad_shape(B, in, dp1, T)) return (int)cudaErrorInvalidValue;
-  const Layout L = layout(B, in, dp1, T, want_dx);
+  const Layout L = bwd_layout(B, in, dp1, T, want_dx, x_is_bf16, round_bf16);
   if (ws_bytes < 0 || (size_t)ws_bytes < workspace_bytes(L)) {
     return (int)cudaErrorInvalidValue;
   }

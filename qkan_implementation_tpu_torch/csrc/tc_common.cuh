@@ -1,7 +1,8 @@
 // Tensor-core helpers shared by the kernels that contract a Chebyshev basis
 // on the tensor cores: the train step's fused_step_kernel_tc
-// (fused_dw_bwd.cu) and the layer forward's fused_dw_fwd_kernel_tc
-// (fused_dw_fwd.cu).  FP32-class products from TF32 units (3xTF32), the
+// (fused_dw_bwd.cu), the layer forward's fused_dw_fwd_kernel_tc
+// (fused_dw_fwd.cu) and the layer backward's fused_dw_bwd_kernel_tc
+// (fused_dw_bwd_tc.cu).  FP32-class products from TF32 units (3xTF32), the
 // mma.sync tile, its fragments, and cp.async copies into shared memory.
 #pragma once
 

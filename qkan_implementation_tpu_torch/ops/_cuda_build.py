@@ -147,12 +147,18 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_fused_fwd_splits.restype = i
             lib.qkan_fused_bwd_col_slices.argtypes = [i]
             lib.qkan_fused_bwd_col_slices.restype = i
-            lib.qkan_fused_bwd_workspace_bytes.argtypes = [i, i, i, i, i]
+            # the backward's route, layout and launches take x's dtype and
+            # the mode (x_is_bf16, round_bf16) after the sizes
+            lib.qkan_fused_bwd_workspace_bytes.argtypes = [i] * 7
             lib.qkan_fused_bwd_workspace_bytes.restype = ll
-            lib.qkan_fused_bwd_row_blocks.argtypes = [i, i, i, i]
+            lib.qkan_fused_bwd_row_blocks.argtypes = [i] * 6
             lib.qkan_fused_bwd_row_blocks.restype = i
-            lib.qkan_fused_bwd_launches.argtypes = [i, i]
+            lib.qkan_fused_bwd_launches.argtypes = [i] * 5
             lib.qkan_fused_bwd_launches.restype = i
+            lib.qkan_fused_bwd_tensor_cores.argtypes = [i] * 5
+            lib.qkan_fused_bwd_tensor_cores.restype = i
+            lib.qkan_fused_bwd_feature_chunk.argtypes = [i] * 5
+            lib.qkan_fused_bwd_feature_chunk.restype = i
             # the backwards and the step take dw (or null) before the
             # stream: given it, they launch the fixed-order pass too
             lib.qkan_fused_dw_bwd.argtypes = [
@@ -162,7 +168,7 @@ def load_library() -> ctypes.CDLL:
                 p, p, p, p, p, ll, i, i, i, i, i, i, i, p, p,
             ]
             lib.qkan_fused_bwd_partial_sum.argtypes = [
-                p, ll, p, i, i, i, i, i, p,
+                p, ll, p, i, i, i, i, i, i, i, p,
             ]
             lib.qkan_fused_step_workspace_bytes.argtypes = [i, i, i, i]
             lib.qkan_fused_step_workspace_bytes.restype = ll

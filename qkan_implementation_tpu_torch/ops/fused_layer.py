@@ -36,16 +36,22 @@ pass of ``csrc/partial_sum.cu`` (``fused_fwd_plan``).  S is a function of
 at one B but may differ in its last bits between batch sizes (the
 features are added in S groups): at the flagship's layer 0 S is 49 at B
 64, 4 at B 4096 and 1 past B 8448.  The TPU kernel and the CUDA-core
-kernel give a row the same bits at any B.  A backward runs
-column slices of 64 (``fused_col_slices``) and, within each, degree
-chunks, carrying dx's sum across them; the train step, where one launch
+kernel give a row the same bits at any B.  A backward at an f32 x in
+'high' / 'default' with dp1 >= 2, T <= 64 and few enough degrees (every
+layer of the main path) runs one launch of the tensor-core kernel, its
+features split over the grid in chunks of 16 (``fused_bwd_plan``: the
+chunk is a function of (in, dp1, T), so a row's dx has the same bits at
+every B); the rest (a bf16 x, 'bf16', dp1 = 1, T > 64, more degrees)
+runs the CUDA-core kernel over column slices of 64 (``fused_col_slices``)
+and, within each, degree chunks, carrying dx's sum across them.  The train step, where one launch
 does not take T, launches its CUDA-core kernel once a column slice
 (``fused_step_col_slice``) into one workspace.  Each is one library call.
 
 A backward (and the train step) writes per-block dW partials to a
 workspace and sums them with that pass, launched by the same library
 call: one call a backward.  The row blocks are a function of the sizes
-alone: K2/K4's ``fused_bwd_layout``, K5's ``fused_step_layout``.  These
+(and of the backward's route) alone: K2/K4's ``fused_bwd_plan`` (its
+CUDA-core kernel's ``fused_bwd_layout``), K5's ``fused_step_layout``.  These
 and the plans above are plain mirrors of the C layouts, which a GPU test
 holds equal.  ``fixed_order_sum_reference`` is that pass's plain version
 in its own order (equal to it bit for bit); ``fused_bwd_partial_sum``
@@ -57,9 +63,10 @@ run the kernel on a CUDA tensor and the plain version on a CPU tensor, so
 the CPU tests exercise the hand-written backward, not autograd's.
 
 Precision.  'high' and 'default' are FP32 products with FP32 sums: on
-the CUDA cores, and in the tensor-core kernels (the forward's, the train
-step's) as 3xTF32 (each f32 operand split into two TF32 parts, three
-products summed in FP32: the counterpart of the TPU's bf16x3 split).  The recurrences run
+the CUDA cores, and in the tensor-core kernels (the forward's, the
+backward's, the train step's) as 3xTF32 (each f32 operand split into two
+TF32 parts, three products summed in FP32: the counterpart of the TPU's
+bf16x3 split).  The recurrences run
 in x's dtype, so a bf16 x rounds tanh and every recurrence op to bf16.
 Then:
 
@@ -271,6 +278,8 @@ _COL_SLICE = 64            # columns of a backward launch, and of a step's
 _STEP_STAGE_BYTES, _STEP_WARPS = 96 * 1024, 8
 # the forward's plan (fwd_plan and fwd_tc in csrc/fused_dw_fwd.cu)
 _FWD_ROWS, _FWD_GRID, _FWD_CC_MAX_IN = 64, 264, 16
+# the backward's tensor-core plan (csrc/fused_bwd_tc.cuh)
+_BT_ROWS, _BT_FC, _BT_GRID, _BT_BUDGET = 64, 16, 264, 8 << 20
 
 
 def _pad_t(t_dim: int) -> int:
@@ -312,10 +321,51 @@ def fused_col_slices(t_dim: int) -> list:
             for c0 in range(0, t_dim, _COL_SLICE)]
 
 
-def fused_bwd_launches(dp1: int, t_dim: int) -> int:
-    """Kernel launches of one backward call: each column slice's degree
-    chunks, DC = 64 // (the slice's padded width) degrees a chunk (the
-    plain mirror of ``qkan_fused_bwd_launches``)."""
+def fused_bwd_plan(b: int, n: int, dp1: int, t_dim: int,
+                   x_bf16: bool = False, round_bf16: bool = False) -> tuple:
+    """(tensor cores, features a chunk, column tiles, rows a block, row
+    blocks) of a backward (K2/K4) at these sizes, x's dtype and mode: the
+    plain mirror of ``bwd_tc_plan`` / ``bwd_tc_rows`` in
+    ``csrc/fused_bwd_tc.cuh`` and of ``layout()`` in
+    ``csrc/fused_dw_bwd.cu`` (C entries ``qkan_fused_bwd_tensor_cores``,
+    ``qkan_fused_bwd_feature_chunk``, ``qkan_fused_bwd_row_blocks``).
+
+    The tensor-core kernel takes an f32 x in 'high' / 'default' (not
+    ``x_bf16``, not ``round_bf16``) at dp1 >= 2 and T <= 64, one column
+    tile, in chunks of 16 features: a warp holds dW^T for dp1 - 1 <= 12,
+    6 or 3 degrees at T padded to 16, 32 or 64, and a block's tiles fit
+    227 KB of shared memory.  Its row blocks: 264 // (feature chunks),
+    capped by the 64-row tiles and by an 8 MB budget of dW partials, each
+    a run of whole tiles.  The chunk is a function of
+    (in, dp1, T) alone, never of B.  Elsewhere the CUDA-core kernel:
+    chunk 0, its column slices of 64, ``fused_bwd_layout``."""
+    n8 = -(-t_dim // 8)
+    nt = 2 if n8 <= 2 else 4 if n8 <= 4 else 8
+    d = dp1 - 1
+    if not (x_bf16 or round_bf16) and 1 <= d <= 24 // nt and t_dim <= 64:
+        tn, fc = 8 * nt, _BT_FC
+        kb = fc * d
+        bs = -(-kb // 32) * 32 + 8
+        tiles = 2 * _BT_ROWS * (bs + fc + (24 if tn == 16 else tn + 8))
+        smem = 4 * (max(tiles, 8 * 128 * d * (nt // 2)) + 2 * kb * tn)
+        if smem <= _TC_SMEM_MAX:
+            tiles = -(-b // _BT_ROWS)
+            nrb = max(min(_BT_GRID // -(-n // fc),
+                          _BT_BUDGET // (d * n * t_dim * 4), tiles), 1)
+            rows = -(-tiles // nrb) * _BT_ROWS
+            return True, fc, 1, rows, -(-b // rows)
+    return (False, 0, len(fused_col_slices(t_dim)),
+            *fused_bwd_layout(b, n, dp1, t_dim))
+
+
+def fused_bwd_launches(n: int, dp1: int, t_dim: int, x_bf16: bool = False,
+                       round_bf16: bool = False) -> int:
+    """Kernel launches of one backward call: one where the tensor-core
+    kernel takes the call (``fused_bwd_plan``), else each column slice's
+    degree chunks, DC = 64 // (the slice's padded width) degrees a chunk
+    (the plain mirror of ``qkan_fused_bwd_launches``)."""
+    if fused_bwd_plan(1, n, dp1, t_dim, x_bf16, round_bf16)[0]:
+        return 1
     total = 0
     for c0, c1 in fused_col_slices(t_dim):
         tp = _pad_t(c1 - c0)
@@ -369,10 +419,12 @@ def partial_sum_segments(nblk: int, per: int) -> int:
 
 def fused_bwd_layout(b: int, n: int, dp1: int, t_dim: int,
                      budget: int = _PARTIAL_BUDGET) -> tuple:
-    """(rows a block, row blocks) of a backward (K2/K4) at these sizes: the
-    plain mirror of ``layout()`` in ``csrc/fused_dw_bwd.cu`` (C entry
-    ``qkan_fused_bwd_row_blocks``).  Rows come in multiples of 32, and as
-    few blocks as keep the dW partials under ``budget`` bytes (4 MB)."""
+    """(rows a block, row blocks) of the CUDA-core backward kernel (K2/K4
+    where ``fused_bwd_plan`` does not take the tensor cores) at these
+    sizes: the plain mirror of ``layout()`` in ``csrc/fused_dw_bwd.cu``
+    (C entry ``qkan_fused_bwd_row_blocks`` on that route).  Rows come in
+    multiples of 32, and as few blocks as keep the dW partials under
+    ``budget`` bytes (4 MB)."""
     per_rb = (dp1 - 1) * n * t_dim * 4
     max_nrb = max(budget // per_rb if per_rb else b, 1)
     rows = -(-b // max_nrb)
@@ -493,10 +545,11 @@ def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
     """A backward kernel (``qkan_fused_dw_bwd`` or ``qkan_fused_bwd``):
     (dx or None, the workspace of dW partials, dW or None).  With
     ``finish`` the same library call launches the fixed-order pass too,
-    into dW [dp1*in, T] f32, a tensor of its own.  Counts one launch per
-    degree chunk (one at the flagship's dp1 and T) and, with ``finish``,
-    one of the pass; a B = 0 input launches and counts nothing (dW is
-    zeros)."""
+    into dW [dp1*in, T] f32, a tensor of its own.  Counts the call's
+    launches (``fused_bwd_launches``: one on the tensor cores, as at every
+    main-path layer; one per degree chunk on the CUDA cores) and, with
+    ``finish``, one of the pass; a B = 0 input launches and counts nothing
+    (dW is zeros)."""
     b, n, t_dim = _check_layer_args(x, w2, dp1)
     g = g.to(torch.float32).contiguous()
     if g.device != x.device or tuple(g.shape) != (b, t_dim):
@@ -508,8 +561,10 @@ def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
+    # the route's flags: x's dtype and the 'bf16' mode (the v1 entry has none)
+    route = (int(x.dtype == torch.bfloat16), int(extra[0]) if extra else 0)
     ws_bytes = lib.qkan_fused_bwd_workspace_bytes(
-        max(b, 1), n, dp1, t_dim, int(want_dx)
+        max(b, 1), n, dp1, t_dim, int(want_dx), *route
     )
     # per-block dW partials (and, past one degree chunk, dt): the kernel
     # allocates nothing itself
@@ -528,21 +583,23 @@ def _bwd_pass(entry: str, x, w2, g, dp1, apply_tanh, extra: tuple,
             dw.data_ptr() if dw is not None else None, stream,
         )
     _raise_on_error(lib, err, entry)
-    _count(*_COUNTER_OF[entry], lib.qkan_fused_bwd_launches(dp1, t_dim))
+    _count(*_COUNTER_OF[entry],
+           lib.qkan_fused_bwd_launches(n, dp1, t_dim, *route))
     if finish:
         _count(fused_bwd_partial_sum, "launches")
     return dx, ws, dw
 
 
 def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True, *,
-                          step=False):
+                          step=False, x_bf16=False, round_bf16=False):
     """dW [dp1*in, T] f32 from the workspace of a backward pass (or, with
-    ``step``, of a train step) at these sizes: the partials summed over
-    row blocks in a fixed order (the pass alone, entries
-    ``qkan_fused_bwd_partial_sum`` / ``qkan_fused_step_partial_sum``; the
-    backwards and the step launch it themselves).  Counts
-    ``fused_bwd_partial_sum.launches``, as do the backwards and the train
-    step where they launch it."""
+    ``step``, of a train step) at these sizes, x's dtype (``x_bf16``) and
+    mode (``round_bf16``: 'bf16'), which pick the backward's route: the
+    partials summed over row blocks in a fixed order (the pass alone,
+    entries ``qkan_fused_bwd_partial_sum`` /
+    ``qkan_fused_step_partial_sum``; the backwards and the step launch it
+    themselves).  Counts ``fused_bwd_partial_sum.launches``, as do the
+    backwards and the train step where they launch it."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
 
     lib = load_library()
@@ -559,7 +616,7 @@ def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True, *,
             entry = "qkan_fused_bwd_partial_sum"
             err = lib.qkan_fused_bwd_partial_sum(
                 ws.data_ptr(), ws.numel(), dw.data_ptr(), max(b, 1), n, dp1,
-                t_dim, int(want_dx), stream,
+                t_dim, int(want_dx), int(x_bf16), int(round_bf16), stream,
             )
     _raise_on_error(lib, err, entry)
     _count(fused_bwd_partial_sum, "launches")
@@ -569,36 +626,41 @@ def fused_bwd_partial_sum(ws, b, n, dp1, t_dim, want_dx=True, *,
 fused_bwd_partial_sum.launches = 0
 
 
-def fused_bwd_workspace_partials(ws, b, n, dp1, t_dim, *,
-                                 step=False) -> tuple:
+def fused_bwd_workspace_partials(ws, b, n, dp1, t_dim, *, step=False,
+                                 x_bf16=False, round_bf16=False) -> tuple:
     """Views of a backward's (or, with ``step``, a train step's)
     workspace: the dW_d (d >= 1) partials [nrb, (dp1-1)*in*T] and the
-    colsum(g) partials [nrb, T], nrb row blocks from ``fused_bwd_layout``
-    (``fused_step_layout``).  The pass sums both in the order of
-    ``partial_sum_segments(nrb, (dp1-1)*in*T)``."""
+    colsum(g) partials [nrb, T], nrb row blocks from ``fused_bwd_plan``
+    at x's dtype and mode (``fused_step_layout``).  The pass sums both in
+    the order of ``partial_sum_segments(nrb, (dp1-1)*in*T)``."""
     nrb = (fused_step_layout(max(b, 1), n, dp1, t_dim)[2] if step
-           else fused_bwd_layout(max(b, 1), n, dp1, t_dim)[1])
+           else fused_bwd_plan(max(b, 1), n, dp1, t_dim, x_bf16,
+                               round_bf16)[4])
     f = ws.view(torch.float32)
     per_rb = (dp1 - 1) * n * t_dim
     return (f[: nrb * per_rb].view(nrb, per_rb),
             f[nrb * per_rb : nrb * (per_rb + t_dim)].view(nrb, t_dim))
 
 
-def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim, *, step=False):
+def fused_bwd_partial_sum_reference(ws, b, n, dp1, t_dim, *, step=False,
+                                    x_bf16=False, round_bf16=False):
     """Plain torch version of ``fused_bwd_partial_sum``: the same sums
     over the [row blocks, ...] partials of a workspace."""
-    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim,
-                                               step=step)
+    part, gpart = fused_bwd_workspace_partials(
+        ws, b, n, dp1, t_dim, step=step, x_bf16=x_bf16,
+        round_bf16=round_bf16)
     return torch.cat([gpart.sum(dim=0).expand(n, -1),
                       part.sum(dim=0).view(-1, t_dim)])
 
 
-def fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, *, step=False):
+def fused_bwd_fixed_order_reference(ws, b, n, dp1, t_dim, *, step=False,
+                                    x_bf16=False, round_bf16=False):
     """Plain torch version of ``fused_bwd_partial_sum`` in the kernel's own
     order (``fixed_order_sum_reference`` over both kinds of partials, with
     the pass's segment count): the kernel equals it bit for bit."""
-    part, gpart = fused_bwd_workspace_partials(ws, b, n, dp1, t_dim,
-                                               step=step)
+    part, gpart = fused_bwd_workspace_partials(
+        ws, b, n, dp1, t_dim, step=step, x_bf16=x_bf16,
+        round_bf16=round_bf16)
     segments = partial_sum_segments(part.shape[0], part.shape[1])
     return torch.cat([
         fixed_order_sum_reference(gpart, segments).expand(n, -1),
@@ -665,9 +727,10 @@ def kan_layer_fused_dw(
     differentiable in x and w2.  A CPU tensor runs the plain versions; a
     CUDA tensor launches the kernels (built from ``csrc/`` at first use),
     and each wrapper counts where it launches: a forward adds one to
-    ``kan_layer_fused_dw.launches``, a backward one per degree chunk of
-    each column slice of 64 (one where T <= 64 and dp1 - 1 degrees fit in
-    registers, as at the flagship) to ``kan_layer_fused_dw.bwd_launches``,
+    ``kan_layer_fused_dw.launches``, a backward its launches
+    (``fused_bwd_launches``: one on the tensor cores, as at every layer of
+    the flagship; on the CUDA cores one per degree chunk of each column
+    slice of 64) to ``kan_layer_fused_dw.bwd_launches``,
     and where the forward splits the features (``fused_fwd_plan``) it
     adds one to ``fused_bwd_partial_sum.launches``.  Any T and dp1 >= 1.
     B = 0 launches nothing.

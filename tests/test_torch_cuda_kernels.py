@@ -279,16 +279,24 @@ def test_launch_counters_count_kernel_launches(cuda):
     assert kan_layer_fused_dw.launches == before + 1
 
 
-@pytest.mark.parametrize("b,dp1,t_dim,chunks", [
-    (0, 6, 10, 0),  # an empty batch launches nothing
-    (8, 6, 10, 1),  # the flagship: 5 degrees in one chunk
-    (8, 6, 16, 2),  # 4 degrees a chunk
-    (8, 12, 33, 11),  # one degree a chunk
-])
-def test_launch_counters_move_once_per_launch(cuda, b, dp1, t_dim, chunks):
-    """Counted where each kernel launches: the backward once per degree
-    chunk, nothing at B = 0."""
-    x, w2 = _inputs(1, b, 16, dp1, t_dim, True, torch.float32, cuda)
+@pytest.mark.parametrize("b,dp1,t_dim,x_dtype,chunks", [
+    (0, 6, 10, torch.float32, 0),  # an empty batch launches nothing
+    (8, 6, 10, torch.float32, 1),  # the flagship: one tensor-core launch
+    # f32 x: the tensor-core kernel, one launch (the CUDA-core kernel
+    # took 2 degree chunks here)
+    (8, 6, 16, torch.float32, 1),
+    # 11 degrees at T 33: past the tensor-core kernel, one degree a chunk
+    (8, 12, 33, torch.float32, 11),
+    # bf16 x: the CUDA-core kernel, once per degree chunk
+    (8, 6, 16, torch.bfloat16, 2),  # 4 degrees a chunk
+    (8, 12, 33, torch.bfloat16, 11),  # one degree a chunk
+], ids=["empty", "flagship", "t16", "t33", "t16_bf16", "t33_bf16"])
+def test_launch_counters_move_once_per_launch(cuda, b, dp1, t_dim, x_dtype,
+                                              chunks):
+    """Counted where each kernel launches: the backward once per launch
+    (one on the tensor cores, one per degree chunk on the CUDA cores),
+    nothing at B = 0."""
+    x, w2 = _inputs(1, b, 16, dp1, t_dim, True, x_dtype, cuda)
     g = torch.ones((b, t_dim), device=cuda)
     for layer, bwd in ((kan_layer_fused_dw, _fused_dw_bwd),
                        (kan_layer_fused, _fused_bwd)):
@@ -372,11 +380,12 @@ def test_wide_layers_match_plain_with_gradients(cuda, b, n, dp1, t_dim,
 
 def test_plan_entries_equal_their_python_mirrors(cuda):
     """The forward's route and feature splits (and its workspace), the
-    backward's column slices and launches: each C entry equals the plain
-    function the CPU tests reach, over a sweep of shapes."""
+    backward's route, feature chunk, row blocks, workspace, column slices
+    and launches: each C entry equals the plain function the CPU tests
+    reach, over a sweep of shapes, x dtypes and modes."""
     from qkan_implementation_tpu_torch.ops._cuda_build import load_library
     from qkan_implementation_tpu_torch.ops.fused_layer import (
-        fused_bwd_launches, fused_col_slices, fused_fwd_plan)
+        fused_bwd_launches, fused_bwd_plan, fused_col_slices, fused_fwd_plan)
 
     lib = load_library()
     for b in (1, 37, 64, 4096, 100000):
@@ -394,9 +403,58 @@ def test_plan_entries_equal_their_python_mirrors(cuda):
     for t_dim in (1, 4, 10, 33, 64, 65, 96, 130, 200):
         assert lib.qkan_fused_bwd_col_slices(t_dim) == \
             len(fused_col_slices(t_dim))
-        for dp1 in (1, 2, 6, 12, 33, 40, 100):
-            assert lib.qkan_fused_bwd_launches(dp1, t_dim) == \
-                fused_bwd_launches(dp1, t_dim)
+        for dp1 in (1, 2, 6, 12, 16, 33, 40, 100):
+            for n in (1, 10, 16, 17, 784):
+                for route in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                    assert lib.qkan_fused_bwd_launches(
+                        n, dp1, t_dim, *route) == fused_bwd_launches(
+                            n, dp1, t_dim, *route)
+    for b in (1, 37, 64, 4096, 100000):
+        for n in (1, 10, 16, 17, 32, 300, 784):
+            for dp1 in (1, 2, 6, 8, 12, 16, 33):
+                for t_dim in (1, 10, 16, 32, 33, 64, 65):
+                    for route in ((0, 0), (1, 0), (0, 1)):
+                        tc, fc, _, _, nrb = fused_bwd_plan(b, n, dp1, t_dim,
+                                                           *route)
+                        assert lib.qkan_fused_bwd_tensor_cores(
+                            n, dp1, t_dim, *route) == int(tc)
+                        assert lib.qkan_fused_bwd_feature_chunk(
+                            n, dp1, t_dim, *route) == fc
+                        assert lib.qkan_fused_bwd_row_blocks(
+                            b, n, dp1, t_dim, *route) == nrb
+                        # dW and colsum(g) partials, then the CUDA-core
+                        # kernel's carried dt past one launch
+                        dt = (b * n if fused_bwd_launches(
+                            n, dp1, t_dim, *route) > 1 else 0)
+                        assert lib.qkan_fused_bwd_workspace_bytes(
+                            b, n, dp1, t_dim, 1, *route) == 4 * (
+                                nrb * ((dp1 - 1) * n * t_dim + t_dim) + dt)
+
+
+@pytest.mark.parametrize("n,t_dim", [(784, 10), (10, 10), (784, 32),
+                                     (32, 16), (16, 16), (16, 10)])
+@pytest.mark.parametrize("v1", [False, True], ids=["dw", "v1"])
+def test_tensor_core_backward_dx_is_batch_invariant(cuda, n, t_dim, v1):
+    """At every layer shape of the main path (f32 x, 'high'), the backward
+    runs the tensor-core kernel; a row's dx has the same bits at B 37, 64
+    and 4096 (the feature chunk and the mma order are functions of (in,
+    dp1, T)), and two runs give the same bits of dx and dW."""
+    from qkan_implementation_tpu_torch.ops.fused_layer import fused_bwd_plan
+
+    for b in (37, 64, 4096):
+        assert fused_bwd_plan(b, n, 6, t_dim)[0]
+    bwd = _fused_bwd if v1 else _fused_dw_bwd
+    x, w2 = _inputs(n + t_dim, 4096, n, 6, t_dim, True, torch.float32, cuda)
+    g = torch.from_numpy(np.random.default_rng(n).normal(size=(4096, t_dim))
+                         .astype(np.float32)).to(cuda)
+    dxs = []
+    for b in (37, 64, 4096):
+        dx, dw = bwd(x[:b], w2, g[:b], 6, True, "high")
+        dx2, dw2 = bwd(x[:b], w2, g[:b], 6, True, "high")
+        torch.cuda.synchronize()
+        assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+        dxs.append(dx[:37])
+    assert torch.equal(dxs[0], dxs[1]) and torch.equal(dxs[0], dxs[2])
 
 
 def test_split_forward_counts_its_pass(cuda):

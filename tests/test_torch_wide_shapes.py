@@ -176,16 +176,82 @@ def test_backward_column_slices_cover_t_in_order():
     assert fl.fused_col_slices(130) == [(0, 64), (64, 128), (128, 130)]
 
 
-@pytest.mark.parametrize("dp1,t_dim,want", [
-    (6, 10, 1),       # the flagship: one launch
-    (6, 16, 2),       # 4 degrees a chunk
-    (12, 33, 11),     # one degree a chunk
-    (40, 130, 81),    # 39 + 39 + 3: two slices of 64, one of 2
-    (1, 130, 3),      # dp1 = 1: one launch a slice (colsum(g) only)
-    (34, 96, 50),     # 33 at 64 columns + 17 at 32 (2 degrees a chunk)
-])
-def test_backward_launches_per_call(dp1, t_dim, want):
-    assert fl.fused_bwd_launches(dp1, t_dim) == want
+@pytest.mark.parametrize("n,dp1,t_dim,x_bf16,want", [
+    (16, 6, 10, False, 1),     # the flagship: one launch
+    # an f32 x takes the tensor-core kernel, one launch, where the
+    # CUDA-core kernel took 2 (4 degrees a chunk); a bf16 x keeps the
+    # CUDA-core kernel and its counts
+    (16, 6, 16, False, 1),
+    (16, 6, 16, True, 2),      # 4 degrees a chunk
+    # 11 degrees at T 33 (64 padded) pass what a warp's registers hold
+    # (3): the CUDA-core kernel at either dtype, one degree a chunk
+    (16, 12, 33, False, 11),
+    (16, 12, 33, True, 11),
+    (16, 40, 130, False, 81),  # 39 + 39 + 3: two slices of 64, one of 2
+    (16, 1, 130, False, 3),    # dp1 = 1: one launch a slice (colsum(g) only)
+    (64, 34, 96, False, 50),   # 33 at 64 columns + 17 at 32 (2 degrees a chunk)
+], ids=["flagship", "t16", "t16_bf16", "t33", "t33_bf16", "t130", "dp1_1",
+        "t96"])
+def test_backward_launches_per_call(n, dp1, t_dim, x_bf16, want):
+    assert fl.fused_bwd_launches(n, dp1, t_dim, x_bf16) == want
+
+
+# (in, T) of chip_smoke.py's LAYER_SHAPES: the flagship checkpoint's
+# layers and those of a [784, 32, 16, 16, 10] mapping to the next width
+LAYER_SHAPES = [(784, 10), (10, 10), (784, 32), (32, 16), (16, 16), (16, 10)]
+
+
+@pytest.mark.parametrize("n,t_dim", LAYER_SHAPES,
+                         ids=[f"{n}to{t}" for n, t in LAYER_SHAPES])
+@pytest.mark.parametrize("b", [64, 4096])
+def test_backward_plan_takes_the_tensor_cores_at_the_main_shapes(n, t_dim,
+                                                                 b):
+    """Every layer of the main path, f32 x, 'high' / 'default': one
+    tensor-core launch; its feature chunks cover [0, in) once, its row
+    blocks cover B in whole 64-row tiles, its dW partials stay within 8 MB
+    (or one row block), and about 264 blocks or fewer."""
+    tc, fc, col_tiles, rows, nrb = fl.fused_bwd_plan(b, n, 6, t_dim)
+    assert tc and col_tiles == 1 and fc == 16
+    assert fl.fused_bwd_launches(n, 6, t_dim) == 1
+    chunks = [(c, min(c + fc, n)) for c in range(0, -(-n // fc) * fc, fc)]
+    assert chunks[0][0] == 0 and chunks[-1][1] == n
+    assert all(a[1] == c[0] and a[0] < a[1] for a, c in zip(chunks,
+                                                            chunks[1:]))
+    assert rows % 64 == 0 and (nrb - 1) * rows < b <= nrb * rows
+    assert nrb == 1 or nrb * 5 * n * t_dim * 4 <= 8 << 20
+    assert nrb * len(chunks) <= 264 or nrb == 1
+
+
+def test_backward_plan_chunk_is_a_function_of_the_sizes_alone():
+    """The feature chunk (so a row's dx bits) does not depend on B; the
+    route does not either; the row blocks do."""
+    for n, t_dim in LAYER_SHAPES + [(37, 17), (300, 33), (24, 64)]:
+        for dp1 in (2, 6, 8):
+            plans = [fl.fused_bwd_plan(b, n, dp1, t_dim)
+                     for b in (1, 37, 64, 65, 4096, 100000)]
+            assert len({p[:3] for p in plans}) == 1
+    # layer 0: 49 chunks of 16 features, 264 // 49 = 5 row blocks of 13
+    # tiles at B 4096 (245 blocks), one tile at B 64 (49 blocks)
+    assert fl.fused_bwd_plan(4096, 784, 6, 10) == (True, 16, 1, 832, 5)
+    assert fl.fused_bwd_plan(64, 784, 6, 10) == (True, 16, 1, 64, 1)
+    assert fl.fused_bwd_plan(4096, 10, 6, 10) == (True, 16, 1, 64, 64)
+
+
+@pytest.mark.parametrize("b,n,dp1,t_dim,x_bf16,round_bf16", [
+    (4096, 784, 6, 10, True, False),   # a bf16 x
+    (4096, 784, 6, 10, False, True),   # 'bf16'
+    (256, 64, 34, 96, False, False),   # chip_smoke.py's wide layer
+    (64, 16, 1, 10, False, False),     # dp1 = 1: colsum(g) only
+    (64, 16, 6, 65, False, False),     # T past one column tile
+    (64, 300, 32, 33, False, False),   # dW past a block's registers
+], ids=["bf16_x", "bf16_mode", "wide", "dp1_1", "t65", "dp1_32"])
+def test_backward_plan_keeps_the_cuda_core_kernel_elsewhere(
+        b, n, dp1, t_dim, x_bf16, round_bf16):
+    """Shapes and modes the tile does not take keep the CUDA-core kernel,
+    its column slices and its 4 MB layout."""
+    plan = fl.fused_bwd_plan(b, n, dp1, t_dim, x_bf16, round_bf16)
+    assert plan == (False, 0, len(fl.fused_col_slices(t_dim)),
+                    *fl.fused_bwd_layout(b, n, dp1, t_dim))
 
 
 def test_forward_plan_route_and_splits():
