@@ -145,12 +145,20 @@ Phases, each reported on its own lines:
       sum; the dW pass over the headline step's workspace (256 partials,
       K5's own layout) as in phase 6.
 13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
-   forward, K13 backward with dx, K14 weight-only backward, the dM pass):
+   forward, K13 backward with dx, K14 weight-only backward, the dM pass;
+   K12 and K14 on the tensor cores where ``m3_tc_plan`` takes the call,
+   f32 x: ``csrc/qkan_layer_m3_tc.cu``; K13, a bf16 x and the rest on
+   the CUDA-core kernels, ``csrc/qkan_layer_m3.cu``):
    a. each kernel against its plain version on the card, twice on the
-      same inputs (the same bits both times): the headline shape (f32 and
+      same inputs (the same bits both times), with the route each call
+      takes: the headline shape (f32 and
       bf16 x), N 16 / K 128 / B 4096, the JAX tests' shapes (B 64 N 4 K 3
       deg 5, B 48 deg 6, B 100 N 3 K 2 deg 3), B 1 with dp1 1 and 2, a bf16
-      x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS;
+      x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS; K12's first
+      37 rows of out bit-equal at B 37, 4096 and 262144 (the headline; 37
+      and 4096 at N16 K128); and K13 and the bf16-x K12 / K14 bit-equal to
+      a build of the M3 sources with ``-DQKAN_M3_TC=0`` (the CUDA-core
+      kernels at every shape, started in the background after the package's build);
    b. bench.py's headline chain in torch: N = K = 16, degree 7,
       B = 262144, w <- w - 1e-7 grad_w sum(qkan_layer_forward_batched_fused
       (x_i, w)^2) for 20 steps on the rotating pool; the start's loss and
@@ -158,7 +166,8 @@ Phases, each reported on its own lines:
       basis (1e-4), K12, K14 and the dM pass 20 times each, K13 never;
       then one fwd+bwd in x and w (K12, K13 and the dM pass once), dx and
       grad_w against float64 autograd;
-   c. each kernel's event ms, device µs, plain ms and bound at the
+   c. each kernel's event ms, device µs, plain ms and bound (on its
+      route's units, the FP32 bound beside it) at the
       headline and at N 16 / K 128 / B 4096, and one step (from the
       weights, and from an M3 leaf) with its device time by kernel,
       beside phase 12c's K5 step, the K3 + K4 pair and torch ops; the dM
@@ -206,9 +215,10 @@ failed check raises and the script exits non-zero without those lines.
 
 Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
-FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W); K5 on
-the tensor cores counts its flops as three TF32 passes over 495 TFLOP/s,
-with the FP32 bound beside it.
+FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W); a
+kernel on the tensor cores (K1-K4 where their plans send a shape there,
+K5's tensor-core step, K12 and K14 by ``m3_tc_plan``) counts its flops as
+three TF32 passes over 495 TFLOP/s, with the FP32 bound beside it.
 Operations count the contractions' multiply-adds, 2 per FMA, and one per
 add of the partial sums; the elementwise recurrences are left out (under
 10% of the FMAs at dp1 = 6).  No single PyTorch call computes tanh ->
@@ -220,11 +230,13 @@ row blocks.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -2229,15 +2241,19 @@ def time_step(device, card: str) -> dict:
 
 # -- phase 13: the batched QKAN layer over M3 (K12-K14) ------------------------
 
-# name in the kernels line -> (TPU kernel, its device function, and the
-# template flag that tells K13 from K14 in the profiler's demangled or
-# mangled names)
+# name in the kernels line -> (TPU kernel, its plan's kind, and its
+# device functions: (name, template flags that tell the CUDA-core K13 from K14 in
+# the profiler's demangled or mangled names); the first name is the
+# tensor-core kernel's where there is one, which "m3_fwd_kernel" matches
+# too)
 M3_KERNELS = {
-    "m3_fwd": ("experimental/pallas_layer.py:60", "m3_fwd_kernel", ()),
-    "m3_bwd": ("experimental/pallas_layer.py:71", "m3_bwd_kernel",
-               ("true>", "Lb1E")),
-    "m3_bwd_dw": ("experimental/pallas_layer.py:198", "m3_bwd_kernel",
-                  ("false>", "Lb0E")),
+    "m3_fwd": ("experimental/pallas_layer.py:60", 0,
+               (("m3_fwd_kernel", ()),)),
+    "m3_bwd": ("experimental/pallas_layer.py:71", 1,
+               (("m3_bwd_kernel", ("true>", "Lb1E")),)),
+    "m3_bwd_dw": ("experimental/pallas_layer.py:198", 2,
+                  (("m3_bwd_dw_kernel_tc", ()),
+                   ("m3_bwd_kernel", ("false>", "Lb0E")))),
 }
 M3_WIDE = (4096, 16, 128, 8)  # B, N, K, dp1: the N16K128 variant
 # the pass tables' rows that the kernels line takes as the passes' own
@@ -2249,10 +2265,18 @@ DM_HEAD = "dM_headline"
 def _m3_device_us(kernels: list, name: str):
     """Device µs a call of the kernel ``name`` in ``device_per_call``'s
     list, or None."""
-    _, fn, flags = M3_KERNELS[name]
     us = [u for k, u in kernels
-          if fn in k and (not flags or any(f in k for f in flags))]
+          if any(fn in k and (not flags or any(f in k for f in flags))
+                 for fn, flags in M3_KERNELS[name][2])]
     return sum(us) if us else None
+
+
+def m3_route(x, m3, name: str) -> str:
+    """The units a call of the kernel ``name`` runs on (``m3_tc_plan``)."""
+    kind = M3_KERNELS[name][1]
+    dp1, n, k = m3.shape
+    tc = pl3.m3_tc_plan(n, dp1, k, kind, x.dtype == torch.bfloat16).ok
+    return "tensor cores" if tc else "CUDA cores"
 
 
 def m3_cases(device) -> list:
@@ -2307,7 +2331,10 @@ def check_m3_kernels(device) -> dict:
         same = all(torch.equal(a, c) for a, c in zip(got, again))
         where = dict(case=name, x=f"[{x.shape[0]},{x.shape[1]}]",
                      m3=f"[{m3.shape[0]},{m3.shape[1]},{m3.shape[2]}]",
-                     dtype=str(x.dtype).split(".")[-1], same_bits_twice=same)
+                     dtype=str(x.dtype).split(".")[-1], same_bits_twice=same,
+                     routes="'" + ", ".join(
+                         f"{k} {m3_route(x, m3, k)}" for k in M3_KERNELS)
+                     + "'")
         errs = {
             "m3_fwd": held("m3_fwd.out", got[0], want_out, "high", **where),
             "m3_bwd": max(held("m3_bwd.dx", got[1], want_dx, "high", **where),
@@ -2324,6 +2351,124 @@ def check_m3_kernels(device) -> dict:
                 worst[k] = max(worst[k], err)
     log("kernel", check="m3_worst_f32", **{k: f"{v:.3e}" for k, v in worst.items()})
     return worst
+
+
+def check_m3_batch_bits(device) -> None:
+    """Phase 13a: K12's first 37 rows of out have the same bits at B 37,
+    4096 and 262144 (the headline; 37 and 4096 at N16 K128)."""
+    (hx, _), hw = headline_inputs(device)
+    rng = np.random.default_rng(SEED + 20)
+    b, n, k, dp1 = M3_WIDE
+    wide = torch.from_numpy(rng.normal(0, 1 / np.sqrt(dp1 * n), (dp1, n, k))
+                            .astype(np.float32)).to(device)
+    for m3, batches in ((weights_to_m3(hw, HN, HK), (37, 4096, HB)),
+                        (wide, (37, b))):
+        full = qkan_layer_fused(hx[:batches[-1]].contiguous(), m3)
+        same = {bb: torch.equal(
+            qkan_layer_fused(hx[:bb].contiguous(), m3)[:37], full[:37])
+            for bb in batches[:-1]}
+        torch.cuda.synchronize()
+        log("kernel", check="m3_fwd_rows_0_36_across_B",
+            m3=f"[{m3.shape[0]},{m3.shape[1]},{m3.shape[2]}]",
+            batches="/".join(map(str, batches)),
+            route=f"'{m3_route(hx, m3, 'm3_fwd')}'",
+            bit_equal=all(same.values()))
+        if not all(same.values()):
+            raise AssertionError(f"m3_fwd: rows 0-36 differ across B {same}")
+
+
+# -- the M3 sources built with -DQKAN_M3_TC=0: the CUDA-core kernels everywhere
+
+M3_OLD_SOURCES = ("qkan_layer_m3.cu", "qkan_layer_m3_tc.cu",
+                  "partial_sum.cu")
+
+
+class OldM3Build(threading.Thread):
+    """The M3 layer's sources compiled with ``-DQKAN_M3_TC=0`` into a
+    library of their own in ``workdir``, in the background (one nvcc
+    process a source, all at once).  ``library()`` waits for it."""
+
+    def __init__(self, workdir: Path):
+        super().__init__()
+        self.workdir, self.error = workdir, None
+        self.path = workdir / "libqkan_m3_old.so"
+
+    def run(self):
+        try:
+            cb, nvcc = _cuda_build, _cuda_build.find_nvcc()
+            objs = [self.workdir / f"{Path(s).stem}.o"
+                    for s in M3_OLD_SOURCES]
+            cb._run_all([[nvcc, *cb.ARCH_FLAGS, "-std=c++17", "-O3",
+                          "-Xcompiler", "-fPIC", "-DQKAN_M3_TC=0", "-c",
+                          "-o", str(o), str(cb.CSRC_DIR / s)]
+                         for s, o in zip(M3_OLD_SOURCES, objs)])
+            cb._run_all([[nvcc, *cb.LINK_FLAGS, "-o", str(self.path),
+                          *map(str, objs)]])
+        except Exception as e:  # raised in library()
+            self.error = e
+
+    def library(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib = ctypes.CDLL(str(self.path))
+        lib.qkan_m3_bwd_blocks.argtypes = [ll, i, i, i, i]
+        lib.qkan_m3_bwd_blocks.restype = i
+        lib.qkan_m3_fwd.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
+        lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i, i,
+                                    p, p]
+        lib.qkan_m3_fwd.restype = lib.qkan_m3_bwd.restype = i
+        return lib
+
+
+def _m3_calls(lib, x, m3, g) -> dict:
+    """out (K12), (dx, dM) (K13) and dM (K14) through ``lib``'s C entries,
+    each one launch and the dM pass in the same call."""
+    b, n = x.shape
+    dp1, _, k = m3.shape
+    xb = int(x.dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty((b, k), dtype=x.dtype, device=x.device)
+    if lib.qkan_m3_fwd(x.data_ptr(), m3.data_ptr(), out.data_ptr(), None, 0,
+                       b, n, dp1, k, xb, stream):
+        raise RuntimeError("qkan_m3_fwd failed")
+    got = {"m3_fwd": (out,)}
+    for name, want_dx in (("m3_bwd", 1), ("m3_bwd_dw", 0)):
+        nblk = lib.qkan_m3_bwd_blocks(b, n, dp1, k, want_dx)
+        part = torch.empty(nblk * dp1 * n * k, dtype=torch.float32,
+                           device=x.device)
+        dx = torch.empty_like(x) if want_dx else None
+        dm = torch.empty_like(m3)
+        if lib.qkan_m3_bwd(x.data_ptr(), m3.data_ptr(), g.data_ptr(),
+                           dx.data_ptr() if want_dx else None,
+                           part.data_ptr(), part.numel() * 4, b, n, dp1, k,
+                           xb, want_dx, dm.data_ptr(), stream):
+            raise RuntimeError("qkan_m3_bwd failed")
+        got[name] = (dx, dm) if want_dx else (dm,)
+    return got
+
+
+def check_m3_old_routes(device, old: OldM3Build) -> None:
+    """Phase 13a: the calls that keep the CUDA-core kernels (K13 at every shape,
+    K12 / K14 on a bf16 x) give the bits of the ``-DQKAN_M3_TC=0`` build,
+    whose every call runs them."""
+    old_lib = old.library()
+    new_lib = _cuda_build.load_library()
+    for name, x, m3, g in m3_cases(device):
+        if name not in ("headline", "headline_bf16_x", f"N{M3_WIDE[1]}_K"
+                        f"{M3_WIDE[2]}_B{M3_WIDE[0]}", "B4096_bf16_x"):
+            continue
+        kept = [k for k in M3_KERNELS if m3_route(x, m3, k) == "CUDA cores"]
+        a, c = _m3_calls(new_lib, x, m3, g), _m3_calls(old_lib, x, m3, g)
+        torch.cuda.synchronize()
+        same = {k: all(torch.equal(u, v) for u, v in zip(a[k], c[k]))
+                for k in kept}
+        log("kernel", check="m3_pr7_routes_vs_old_build", case=name,
+            dtype=str(x.dtype).split(".")[-1],
+            kept="/".join(kept), same_bits=all(same.values()))
+        if not all(same.values()):
+            raise AssertionError(f"m3 {name}: the CUDA-core route changed {same}")
 
 
 def m3_chain_f64(x, w, x_grad: bool = False):
@@ -2414,8 +2559,9 @@ def run_m3_chain(device, paths: dict) -> float:
 
 def m3_timing_cases(device, b, n, k, dp1, timed: bool = True) -> tuple:
     """Each kernel at one shape, f32: name -> (kernel call, plain call, one
-    PyTorch call or None, (bound ms, what bounds it)); and the inputs (only
-    those where ``timed`` is false)."""
+    PyTorch call or None, ``unit_bound`` on the units of the call's route:
+    (bound ms, what bounds it, the units, the FP32 bound ms)); and the
+    inputs (only those where ``timed`` is false)."""
     rng = np.random.default_rng(SEED + 16)
     if (b, n, k, dp1) == (HB, HN, HK, HDEG + 1):
         (x, _), w = headline_inputs(device)
@@ -2430,16 +2576,21 @@ def m3_timing_cases(device, b, n, k, dp1, timed: bool = True) -> tuple:
     g = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32)).to(device)
     mm = 2.0 * b * n * (dp1 - 1) * k  # flops of one contraction
     x_b, m_b, bk_b = 4.0 * b * n, 4.0 * dp1 * n * k, 4.0 * b * k
+
+    def ub(name, nbytes, flops):  # on the units the call's route uses
+        return unit_bound(nbytes, flops,
+                          m3_route(x, m3, name) == "tensor cores")
+
     cases = {
         "m3_fwd": (lambda: qkan_layer_fused(x, m3),
                    lambda: qkan_layer_fused_reference(x, m3),
-                   None, bound(x_b + m_b + bk_b, mm)),
+                   None, ub("m3_fwd", x_b + m_b + bk_b, mm)),
         "m3_bwd": (lambda: pl3._bwd_pass(x, m3, g, True),
                    lambda: qkan_layer_fused_bwd_reference(x, m3, g, True),
-                   None, bound(2 * x_b + 2 * m_b + bk_b, 2 * mm)),
+                   None, ub("m3_bwd", 2 * x_b + 2 * m_b + bk_b, 2 * mm)),
         "m3_bwd_dw": (lambda: pl3._bwd_pass(x, m3, g, False),
                       lambda: qkan_layer_fused_bwd_reference(x, m3, g, False),
-                      None, bound(x_b + m_b + bk_b, mm)),
+                      None, ub("m3_bwd_dw", x_b + m_b + bk_b, mm)),
     }
     return cases, x, m3
 
@@ -2454,20 +2605,26 @@ def time_m3(device, card: str, step_table: dict) -> dict:
         b, n, k, dp1 = shape
         tag = f"B{b}_N{n}_K{k}_dp1_{dp1}"
         cases, x, m3 = m3_timing_cases(device, *shape)
-        for name, (kern, plain, lib, (b_ms, b_by)) in cases.items():
+        for name, (kern, plain, lib, (b_ms, b_by, units, fp32_ms)) in \
+                cases.items():
             k_ms = median_ms(kern, reps=30)
             p_ms = median_ms(plain, reps=30)
             l_ms = median_ms(lib, reps=30) if lib is not None else None
             dev = _m3_device_us(device_per_call(kern), name)
+            route = m3_route(x, m3, name)
             table[(name, tag)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                       bound_ms=b_ms, bound_by=b_by,
-                                      device_us=dev)
-            log("time", kernel=name, shape=tag, kernel_ms=f"{k_ms:.4f}",
+                                      bound_units=units,
+                                      bound_fp32_ms=fp32_ms, device_us=dev,
+                                      kernel_route=route)
+            log("time", kernel=name, shape=tag, route=f"'{route}'",
+                kernel_ms=f"{k_ms:.4f}",
                 device_us="not measured" if dev is None else f"{dev:.3f}",
                 plain_ms=f"{p_ms:.4f}",
                 library_ms="null" if l_ms is None else f"{l_ms:.4f}",
                 bound_us=f"{b_ms * 1e3:.3f}", bound_by=b_by,
-                card=f"'{card}'")
+                bound_units=f"'{units}'",
+                bound_fp32_us=f"{fp32_ms * 1e3:.3f}", card=f"'{card}'")
     log("time", note="library_ms null for m3_fwd, m3_bwd, m3_bwd_dw: no "
         "single PyTorch call computes the basis and the contraction")
 
@@ -3014,6 +3171,9 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - start:.2f}",
         library=_cuda_build.library_path().name, kernels=len(regs),
         max_registers=max(regs), kernels_spilling=len(spills))
+    old_dir = tempfile.TemporaryDirectory()
+    old_m3 = OldM3Build(Path(old_dir.name))
+    old_m3.start()  # the CUDA-core M3 kernels for phase 13a, in the background
 
     errs = {"fused_dw_fwd": check_kernel(device)}
     errs["fused_dw_fwd"] = max(errs["fused_dw_fwd"],
@@ -3047,6 +3207,9 @@ def main() -> int:
     step_table = time_step(device, smi)
     pass_table.update(time_passes(pass_cases(device, "k5"), smi))
     m3_errs = check_m3_kernels(device)
+    check_m3_batch_bits(device)
+    check_m3_old_routes(device, old_m3)
+    old_dir.cleanup()
     for name in M3_KERNELS:
         m3_errs[name] = max(m3_errs[name], wide_errs[name])
     m3_chain_ms = run_m3_chain(device, paths)
@@ -3178,16 +3341,21 @@ def main() -> int:
                   "B{}_N{}_K{}_dp1_{}".format(*M3_WIDE))
     for name, (tpu, *_) in M3_KERNELS.items():
         t = m3_table[(name, head)]
+        src = ("qkan_layer_m3_tc.cu" if t["kernel_route"] == "tensor cores"
+               else "qkan_layer_m3.cu")
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "qkan_implementation_tpu_torch/csrc/qkan_layer_m3.cu",
+            # the units of the call (``m3_tc_plan``); route stays "cuda"
+            "kernel_route": t["kernel_route"],
+            "source": f"qkan_implementation_tpu_torch/csrc/{src}",
             "replaces": f"qkan_implementation_tpu/{tpu}",
             "launches": sum(c[name] for c in paths.values()),
             "launches_by_path": {p: c[name] for p, c in paths.items()
                                  if c[name]},
             "max_abs_err": m3_errs[name],
             **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "bound_units", "bound_fp32_ms",
                                  "library_ms", "device_us")},
             "bound_us": t["bound_ms"] * 1e3,
             "at": f"x[{HB},{HN}], dp1 {HDEG + 1}, K {HK}, f32",

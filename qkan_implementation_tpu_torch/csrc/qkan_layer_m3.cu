@@ -18,12 +18,26 @@
 // once, at the store.  d * U_{d-1} rounds to bf16 before its product with
 // the f32 g.M3[d]^T, as the TPU kernel's bf16 multiply does.
 //
-// What bounds it on an H100: at the headline layer (B = 262144, N = K = 16,
-// dp1 = 8) the forward reads x (16.8 MB) and writes out (16.8 MB), 10 us at
-// 3.35 TB/s, against 2 B N (dp1 - 1) K = 0.94 GFLOP of FP32 FMAs, 14 us at
-// 67 TFLOP/s: operations.  The backward with dx does twice the FMAs (28 us)
-// for x + g + dx (15 us).  The design keeps the basis out of device memory
-// (the TPU kernels' point) and M3, a few KB, in shared memory.
+// Two routes, chosen by the sizes and x's dtype alone (tc_plan below, C
+// entry qkan_m3_tc_plan, mirrored by pallas_layer.py's m3_tc_plan):
+//   - the tensor cores (qkan_layer_m3_tc.cu: m3_fwd_kernel_tc for K12,
+//     m3_bwd_dw_kernel_tc for K14, 3xTF32 mma.sync) for an f32 x where one
+//     launch takes the whole M3 (m3_slices below) and, for K12, M3's
+//     fragments and the warps' rings fit a block's shared memory;
+//   - the FP32 CUDA cores (this file's kernels) for a bf16 x, for
+//     K13 (the backward with dx) at every shape, and for what the plan
+//     refuses.
+// What bounds them on an H100: at the headline layer (B = 262144, N = K =
+// 16, dp1 = 8) the forward reads x (16.8 MB) and writes out (16.8 MB), 10
+// us at 3.35 TB/s, against 2 B N (dp1 - 1) K = 0.94 GFLOP of FMAs, 14 us
+// at 67 TFLOP/s on the CUDA cores (operations) and 5.7 us as three TF32
+// passes on the tensor cores (bytes); K14 reads x and g, the same bytes
+// and FMAs.  K13 does twice the FMAs (28 us on the CUDA cores) for x + g +
+// dx (15 us).  Both routes keep the basis out of device memory (the TPU
+// kernels' point).  -DQKAN_M3_TC=0 sends every shape to this file's
+// kernels (tools/m3_vs_old.py).
+//
+// The CUDA-core kernels:
 //
 // Forward schedule.  A block stages M3 once (zero-padded to KP columns) and
 // walks its rows grid-stride, one row a thread: the tile of x is staged in
@@ -64,6 +78,7 @@
 
 #include <type_traits>
 
+#include "m3_tc.cuh"
 #include "qkan_common.cuh"
 
 namespace {
@@ -603,6 +618,58 @@ bool refused(int N, int dp1, int K, int kind) {
   return !fits(sl.nw, dp1, sl.kw, kind);
 }
 
+// The tensor-core route (qkan_layer_m3_tc.cu) and its tiling: an f32 x, K12
+// or K14 (kind 0 or 2; K13 keeps the CUDA cores), an M3 that one launch
+// takes whole (no slices, so the launch counts and carries are the same
+// on both routes), and the block's shared memory within SMEM_LIMIT:
+//   K12: M3's B fragments {hi, lo} of degrees 1 .. D [D s][NTP][32] float4,
+//        colsum(M3[0]) and 8 warps' rings of M3T_RING stages of 16 mt rows
+//        x xs floats (xs: N padded to 8 s, + 8 where that is a multiple of
+//        16, so a quad's 8-byte reads of 4 rows fall on distinct banks);
+//        ntw = the n8-tiles of K up to 8 (1, 2, 4, 8), mt 4 at ntw 1, else
+//        2, ng = the groups of ntw;
+//   K14: 8 warps' rings of M3T_RING stages of 32 rows x (8 + M3T_GS)
+//        floats, or the row splits' dM^T where that is more; mg m16-tiles
+//        of K, dgn groups of dpg <= M3T_DPG degrees, s groups of 8
+//        features: mg s dgn groups of warps, wr = 8 / groups of them a
+//        group (row splits) where that is more than 1, else gy blocks of 8
+//        groups on the grid's second dimension.
+qkan::M3TcPlan tc_plan(int N, int dp1, int K, int kind, int x_is_bf16) {
+  qkan::M3TcPlan p{};
+  if (!QKAN_M3_TC || x_is_bf16 || bad_shape(0, N, dp1, K) ||
+      (kind != 0 && kind != 2) || launches(N, dp1, K, kind) != 1) {
+    return p;
+  }
+  const long long D = dp1 - 1;
+  p.s = (N + 7) / 8;
+  if (kind == 0) {
+    const int np = 8 * p.s;
+    p.xs = np % 16 == 0 ? np + 8 : np;
+    const int nt = (K + 7) / 8;
+    p.ntw = nt <= 1 ? 1 : nt <= 2 ? 2 : nt <= 4 ? 4 : 8;
+    p.ng = (nt + p.ntw - 1) / p.ntw;
+    p.mt = p.ntw == 1 ? 4 : 2;
+    const long long ntp = (long long)p.ng * p.ntw;
+    p.smem = 16 * D * p.s * ntp * 32 + 4 * 8 * ntp +
+             4LL * 8 * qkan::M3T_RING * 16 * p.mt * p.xs;
+  } else {
+    p.xs = 8;
+    p.mg = (K + 15) / 16;
+    p.dgn = D <= qkan::M3T_DPG ? 1 : (int)((D + qkan::M3T_DPG - 1) /
+                                          qkan::M3T_DPG);
+    p.dpg = (int)((D + p.dgn - 1) / p.dgn);
+    const long long groups = (long long)p.mg * p.s * p.dgn;
+    p.wr = groups >= 8 ? 1 : (int)(8 / groups);
+    p.gy = (int)((groups + 7) / 8);
+    const long long ring = 4LL * 8 * qkan::M3T_RING * qkan::M3T_CHUNK *
+                           (8 + qkan::M3T_GS);
+    const long long red = 4LL * 8 * 32 * 4 * (qkan::M3T_DPG + 1);
+    p.smem = ring > red ? ring : red;
+  }
+  p.ok = p.smem <= SMEM_LIMIT;
+  return p;
+}
+
 }  // namespace
 
 // Shared memory a block of the kernel takes at these sizes (kind 0: the
@@ -660,6 +727,21 @@ extern "C" int qkan_m3_bwd_blocks(long long B, int N, int dp1, int K,
   return bwd_layout(B, N, dp1, K, want_dx).nblk;
 }
 
+// The tensor-core plan of a call of kind `kind` (0: K12, 1: K13, 2: K14)
+// at these sizes and x dtype (tc_plan): plan[12] receives {ok, s, xs, mt,
+// ntw, ng, mg, dgn, dpg, wr, gy, smem}; returns ok (1: the call runs the
+// tensor-core kernel, 0: this file's CUDA-core kernels).
+extern "C" int qkan_m3_tc_plan(int N, int dp1, int K, int kind, int x_is_bf16,
+                               long long* plan) {
+  const qkan::M3TcPlan p = tc_plan(N, dp1, K, kind, x_is_bf16);
+  const long long v[12] = {p.ok, p.s,  p.xs,  p.mt, p.ntw, p.ng,
+                           p.mg, p.dgn, p.dpg, p.wr, p.gy,  p.smem};
+  if (plan != nullptr) {
+    for (int i = 0; i < 12; ++i) plan[i] = p.ok ? v[i] : 0;
+  }
+  return p.ok;
+}
+
 // Forward: x [B, N] f32 (x_is_bf16 = 0) or bf16 (1); m3 [dp1, N, K] f32;
 // out [B, K] in x's dtype; carry: qkan_m3_carry_bytes(B, N, dp1, K, 0)
 // bytes (null when 0).  All contiguous, B >= 1.  Returns the CUDA error
@@ -675,6 +757,11 @@ extern "C" int qkan_m3_fwd(const void* x, const void* m3, void* out,
   const float* m = static_cast<const float*>(m3);
   float* c = static_cast<float*>(carry);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const qkan::M3TcPlan p = tc_plan(N, dp1, K, 0, x_is_bf16);
+  if (p.ok) {
+    return (int)qkan::m3_fwd_tc(static_cast<const float*>(x), m,
+                                static_cast<float*>(out), B, N, dp1, K, p, s);
+  }
   return (int)(x_is_bf16
                    ? run_fwd<__nv_bfloat16>(x, m, out, c, B, N, dp1, K, s)
                    : run_fwd<float>(x, m, out, c, B, N, dp1, K, s));
@@ -699,7 +786,8 @@ extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
       refused(N, dp1, K, kind)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long long nblk = bwd_layout(B, N, dp1, K, want_dx).nblk;
+  const BwdLayout L = bwd_layout(B, N, dp1, K, want_dx);
+  const long long nblk = L.nblk;
   const long long part_floats = nblk * dp1 * N * K;
   if (part_bytes < 4 * (part_floats + carry_floats(B, N, dp1, K, kind))) {
     return (int)cudaErrorInvalidValue;
@@ -709,7 +797,12 @@ extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
   float* c = f + part_floats;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (x_is_bf16) {
+  const qkan::M3TcPlan p = tc_plan(N, dp1, K, kind, x_is_bf16);
+  if (p.ok) {  // K14 on the tensor cores, in the same block layout
+    err = qkan::m3_bwd_dw_tc(static_cast<const float*>(x),
+                             static_cast<const float*>(g), f, B, N, dp1, K,
+                             L.rows, L.nblk, p, s);
+  } else if (x_is_bf16) {
     err = want_dx ? run_bwd<__nv_bfloat16, true>(x, m, g, dx, f, c, B, N, dp1, K, s)
                   : run_bwd<__nv_bfloat16, false>(x, m, g, dx, f, c, B, N, dp1, K, s);
   } else {

@@ -26,18 +26,26 @@ Each function has two versions:
   ``qkan_layer_fused_bwd_reference``) with those rounding points, which
   CPU tensors take (f32, bf16 or f64) and which the kernels are held to on
   the card;
-- CUDA kernels (``csrc/qkan_layer_m3.cu``) for f32 or bf16 x with f32 M3:
-  K12 ``qkan_m3_fwd``, K13 ``qkan_m3_bwd`` with dx, K14 the same entry
+- CUDA kernels for f32 or bf16 x with f32 M3, behind two C entries: K12
+  ``qkan_m3_fwd``, K13 ``qkan_m3_bwd`` with dx, K14 the same entry
   without dx, and the fixed-order sum of the backward's per-block dM
   partials (``csrc/partial_sum.cu``), which ``qkan_m3_bwd`` launches in
   the same library call (one call a backward; ``m3_dm_partial_sum`` runs
   it alone; ``ops.fused_layer.fixed_order_sum_reference`` is its plain
-  version in its own order).  A CUDA tensor launches them or raises
-  (ValueError for an f64 tensor): there is no fallback to the plain
-  version.  Any M3 and any D+1: where a kernel's staging of M3 overflows
-  one block's shared memory, the entry runs it over slices of M3
-  (``m3_slices``: output columns first, then features), each a launch,
-  the sums that cross slices carried in f32 in launch order.
+  version in its own order).  The entries pick each call's route by the
+  sizes and x's dtype alone (``m3_tc_plan``, the mirror of the C entry
+  ``qkan_m3_tc_plan``): K12 and K14 on an f32 x whose M3 one launch
+  takes whole run on the tensor cores (``csrc/qkan_layer_m3_tc.cu``,
+  3xTF32 ``mma.sync``, the basis built in registers in the fragments'
+  order); a bf16 x, K13 and what the plan refuses run the CUDA-core
+  kernels (``csrc/qkan_layer_m3.cu``).  A CUDA tensor launches them or
+  raises (ValueError for an f64 tensor): there is no fallback to the
+  plain version.  Any M3 and any D+1: where a CUDA-core kernel's staging
+  of M3 overflows one block's shared memory, the entry runs it over
+  slices of M3 (``m3_slices``: output columns first, then features),
+  each a launch, the sums that cross slices carried in f32 in launch
+  order.  Both routes keep the backward's block layout
+  (``m3_bwd_layout``), so the dM partials and their pass are the same.
 
 ``qkan_layer_fused`` and ``qkan_layer_fused_dw`` are differentiable in x
 and M3 through one ``torch.autograd.Function``: the backward runs K13 when
@@ -52,6 +60,9 @@ Pallas interpret mode).  Launch counts, one a launch, nothing at B = 0:
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -68,8 +79,11 @@ from qkan_implementation_tpu_torch.utils.platform import (
 
 # qkan_m3_smem_bytes's kinds
 _FWD, _BWD, _BWD_DW = 0, 1, 2
-# the constants of csrc/qkan_layer_m3.cu that m3_slices mirrors
+# the constants of csrc/qkan_layer_m3.cu that m3_slices and m3_bwd_layout
+# mirror, and those of csrc/m3_tc.cuh that m3_tc_plan mirrors
 _THREADS, _DC, _SMEM_LIMIT = 256, 8, 232448
+_MAX_BLOCKS, _PART_BUDGET = 264, 16 << 20
+_TC_RING, _TC_CHUNK, _TC_GS, _TC_DPG = 2, 32, 24, 8
 
 
 def _geo(n: int, k: int) -> tuple:
@@ -107,6 +121,87 @@ def m3_slices(n: int, dp1: int, k: int, kind: int) -> tuple:
     while nw > 1 and not _fits(nw, dp1, kw, kind):
         nw = (nw + 1) // 2
     return nw, kw
+
+
+def m3_bwd_layout(b: int, n: int, dp1: int, k: int, want_dx: bool) -> tuple:
+    """(tile rows, rows a block, blocks) of a backward call: the plain
+    mirror of ``bwd_layout()`` in ``csrc/qkan_layer_m3.cu`` (blocks: C
+    entry ``qkan_m3_bwd_blocks``), the same on both routes.  At most 264
+    blocks, fewer where the dM partials would pass 16 MB; a block's rows
+    are whole tiles of the CUDA-core kernel's widest slice."""
+    nw, kw = m3_slices(n, dp1, k, _BWD if want_dx else _BWD_DW)
+    kp, _, xs, gs = _geo(nw, kw)
+    tr = next((r for r in (256, 128, 64, 32)
+               if 4 * ((dp1 * nw * kp if want_dx else 0)
+                       + max(r * (xs + gs), _THREADS * _DC * 4))
+               <= _SMEM_LIMIT), 32)
+    cap = max(1, min(_MAX_BLOCKS, _PART_BUDGET // (dp1 * n * k * 4)))
+    rows = -(-(-(-b // tr)) // cap) * tr
+    return tr, rows, -(-b // rows)
+
+
+class M3TcPlan(NamedTuple):
+    """The tensor-core plan of one call (``m3_tc_plan``); all zeros where
+    the call runs the CUDA-core kernels."""
+
+    ok: int    # 1: the call runs the tensor-core kernel
+    s: int     # k-steps of 8 features a degree (N padded to 8 s)
+    xs: int    # the x stage's row stride, floats
+    mt: int    # K12: m16-tiles (16 rows) a warp's task
+    ntw: int   # K12: n8-tiles of K a warp
+    ng: int    # K12: groups of ntw n8-tiles
+    mg: int    # K14: m16-tiles of K (16 columns of g a warp)
+    dgn: int   # K14: degree groups
+    dpg: int   # K14: degrees a group
+    wr: int    # K14: row splits (warps) a group in a block
+    gy: int    # K14: the grid's second dimension
+    smem: int  # a block's dynamic shared memory, bytes
+
+
+def m3_tc_plan(n: int, dp1: int, k: int, kind: int,
+               x_bf16: bool = False) -> M3TcPlan:
+    """The route and tiling of a call of ``kind`` (0: K12, 1: K13, 2: K14)
+    at these sizes and x dtype: the plain mirror of ``tc_plan()`` in
+    ``csrc/qkan_layer_m3.cu`` (C entry ``qkan_m3_tc_plan``).  The tensor
+    cores take K12 and K14 on an f32 x where one launch takes the whole
+    M3 (``m3_slices`` cuts nothing) and the block's shared memory fits:
+    K12 stages M3's fragments {hi, lo} of degrees 1..D beside 8 warps'
+    rings of 2 stages; K14 stages no M3.  A bf16 x, K13 and the rest run
+    the CUDA-core kernels (all fields 0)."""
+    off = M3TcPlan(*[0] * 12)
+    if (x_bf16 or kind not in (_FWD, _BWD_DW) or min(n, dp1, k) < 1
+            or m3_slices(n, dp1, k, kind) != (n, k)):
+        return off
+    d, s = dp1 - 1, -(-n // 8)
+    if kind == _FWD:
+        xs = 8 * s + 8 if (8 * s) % 16 == 0 else 8 * s
+        nt = -(-k // 8)
+        ntw = 1 if nt <= 1 else 2 if nt <= 2 else 4 if nt <= 4 else 8
+        ng, mt = -(-nt // ntw), 4 if ntw == 1 else 2
+        smem = (16 * d * s * ng * ntw * 32 + 4 * 8 * ng * ntw
+                + 4 * 8 * _TC_RING * 16 * mt * xs)
+        plan = M3TcPlan(1, s, xs, mt, ntw, ng, 0, 0, 0, 0, 0, smem)
+    else:
+        mg = -(-k // 16)
+        dgn = 1 if d <= _TC_DPG else -(-d // _TC_DPG)
+        groups = mg * s * dgn
+        smem = max(4 * 8 * _TC_RING * _TC_CHUNK * (8 + _TC_GS),
+                   4 * 8 * 32 * 4 * (_TC_DPG + 1))
+        plan = M3TcPlan(1, s, 8, 0, 0, 0, mg, dgn, -(-d // dgn),
+                        1 if groups >= 8 else 8 // groups, -(-groups // 8),
+                        smem)
+    return plan if plan.smem <= _SMEM_LIMIT else off
+
+
+def library_m3_tc_plan(n: int, dp1: int, k: int, kind: int,
+                       x_bf16: bool = False) -> M3TcPlan:
+    """``m3_tc_plan`` as the built library computes it (C entry
+    ``qkan_m3_tc_plan``; needs the CUDA build)."""
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+
+    out = (ctypes.c_longlong * 12)()
+    load_library().qkan_m3_tc_plan(n, dp1, k, kind, int(x_bf16), out)
+    return M3TcPlan(*out)
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -212,6 +212,9 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i,
                                         i, p, p]
             lib.qkan_m3_dm_sum.argtypes = [p, p, i, ll, p]
+            lib.qkan_m3_tc_plan.argtypes = [i, i, i, i, i,
+                                            ctypes.POINTER(ll)]
+            lib.qkan_m3_tc_plan.restype = i
             # the global-qubit exchange with its 2x2 (csrc/exchange.cu)
             lib.qkan_exchange_ucry.argtypes = [p, p, p, p, p, ll, i, i, p]
             lib.qkan_exchange_h.argtypes = [p, p, p, ll, i, i, p]

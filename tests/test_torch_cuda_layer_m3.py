@@ -285,3 +285,86 @@ def test_slice_entries_equal_their_python_mirrors(cuda):
                              4 * 7 * n if kind == 1 and kw < k else 0)
                     assert lib.qkan_m3_carry_bytes(7, n, dp1, k, kind) == \
                         carry
+
+
+# -- the tensor-core route (csrc/qkan_layer_m3_tc.cu) -------------------------
+
+
+def test_tc_plan_entry_equals_its_python_mirror(cuda):
+    """``qkan_m3_tc_plan`` (the route and tiling each call takes) and
+    ``qkan_m3_bwd_blocks`` (the backward's block layout, the same on both
+    routes) equal their plain mirrors over a grid of sizes."""
+    from qkan_implementation_tpu_torch.ops._cuda_build import load_library
+
+    lib = load_library()
+    for n in (1, 3, 8, 16, 40, 64, 300):
+        for dp1 in (1, 2, 8, 12, 32, 40):
+            for k in (1, 2, 16, 50, 128, 256):
+                for kind in (0, 1, 2):
+                    for x_bf16 in (False, True):
+                        assert pl.library_m3_tc_plan(n, dp1, k, kind,
+                                                     x_bf16) == \
+                            pl.m3_tc_plan(n, dp1, k, kind, x_bf16)
+                for want_dx in (False, True):
+                    for b in (1, 37, 4096, 262144):
+                        assert lib.qkan_m3_bwd_blocks(b, n, dp1, k,
+                                                      int(want_dx)) == \
+                            pl.m3_bwd_layout(b, n, dp1, k, want_dx)[2]
+
+
+def _kernel_names(fn) -> set:
+    """The device kernels ``fn`` launches, from torch.profiler.  A window
+    in which the profiler saw no device event is taken again, up to three
+    times, as chip_smoke.py's ``device_per_call`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = set()
+    for _ in range(3):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = {ev.key for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            break
+    return names
+
+
+@pytest.mark.parametrize("b,n,k,dp1,x_dtype", [
+    (4096, 16, 16, 8, torch.float32),    # the headline layer's widths
+    (4096, 16, 128, 8, torch.float32),   # N16 K128
+    (37, 3, 2, 2, torch.float32),
+    (300, 40, 50, 12, torch.float32),    # K12's M3 fragments overflow
+    (4096, 16, 16, 8, torch.bfloat16),   # a bf16 x
+])
+def test_each_call_runs_the_route_of_its_plan(cuda, b, n, k, dp1, x_dtype):
+    """K12 and K14 launch the tensor-core kernels where ``m3_tc_plan``
+    takes the call and the CUDA-core kernels elsewhere; K13 always
+    the CUDA-core kernel."""
+    x, m3, g = _inputs(b + k, b, n, k, dp1, x_dtype, cuda)
+    bf16 = x_dtype == torch.bfloat16
+    for kind, fn in ((0, lambda: qkan_layer_fused(x, m3)),
+                     (1, lambda: pl._bwd_pass(x, m3, g, True)),
+                     (2, lambda: pl._bwd_pass(x, m3, g, False))):
+        names = " ".join(_kernel_names(fn))
+        tc = pl.m3_tc_plan(n, dp1, k, kind, bf16).ok
+        tc_name = "m3_fwd_kernel_tc" if kind == 0 else "m3_bwd_dw_kernel_tc"
+        old_name = "m3_fwd_kernel<" if kind == 0 else "m3_bwd_kernel<"
+        assert (tc_name in names) == tc, names
+        assert (old_name in names) == (not tc), names
+
+
+@pytest.mark.parametrize("n,k", [(16, 16), (16, 128), (3, 2), (40, 50)])
+def test_out_rows_are_bit_equal_across_batch(cuda, n, k):
+    """A row of out has the same bits at every B on both routes: K12's
+    tensor-core warps compute each row from its own x and the plan alone."""
+    x, m3, _ = _inputs(5, 4096, n, k, 8, torch.float32, cuda)
+    full = qkan_layer_fused(x, m3)
+    for b in (1, 37, 100):
+        part = qkan_layer_fused(x[:b].contiguous(), m3)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:b])
