@@ -156,9 +156,8 @@ Phases, each reported on its own lines:
       deg 5, B 48 deg 6, B 100 N 3 K 2 deg 3), B 1 with dp1 1 and 2, a bf16
       x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS; K12's first
       37 rows of out bit-equal at B 37, 4096 and 262144 (the headline; 37
-      and 4096 at N16 K128); and K13 and the bf16-x K12 / K14 bit-equal to
-      a build of the M3 sources with ``-DQKAN_M3_TC=0`` (the CUDA-core
-      kernels at every shape, started in the background after the package's build);
+      and 4096 at N16 K128) (``tools/m3_vs_old.py --parent-csrc`` holds
+      K13 and the bf16-x K12 / K14 to an earlier commit's bits);
    b. bench.py's headline chain in torch: N = K = 16, degree 7,
       B = 262144, w <- w - 1e-7 grad_w sum(qkan_layer_forward_batched_fused
       (x_i, w)^2) for 20 steps on the rotating pool; the start's loss and
@@ -167,7 +166,8 @@ Phases, each reported on its own lines:
       then one fwd+bwd in x and w (K12, K13 and the dM pass once), dx and
       grad_w against float64 autograd;
    c. each kernel's event ms, device µs, plain ms and bound (on its
-      route's units, the FP32 bound beside it) at the
+      route's units, the FP32 bound beside it; the route read from the
+      profiler's kernel names and held to ``m3_tc_plan``) at the
       headline and at N 16 / K 128 / B 4096, and one step (from the
       weights, and from an M3 leaf) with its device time by kernel,
       beside phase 12c's K5 step, the K3 + K4 pair and torch ops; the dM
@@ -230,13 +230,11 @@ row blocks.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import re
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 import urllib.error
 import urllib.request
@@ -2262,13 +2260,21 @@ DW_HEAD = "dW_layer0_B4096"
 DM_HEAD = "dM_headline"
 
 
-def _m3_device_us(kernels: list, name: str):
-    """Device µs a call of the kernel ``name`` in ``device_per_call``'s
-    list, or None."""
-    us = [u for k, u in kernels
-          if any(fn in k and (not flags or any(f in k for f in flags))
-                 for fn, flags in M3_KERNELS[name][2])]
-    return sum(us) if us else None
+def _m3_device_us(kernels: list, name: str) -> tuple:
+    """(device µs a call, the units it ran on) of the kernel ``name`` in
+    ``device_per_call``'s list, the units read from the device functions'
+    names (a ``_tc`` kernel runs on the tensor cores); (None, None) where
+    the list holds none of them."""
+    mine = [(k, u) for k, u in kernels
+            if any(fn in k and (not flags or any(f in k for f in flags))
+                   for fn, flags in M3_KERNELS[name][2])]
+    if not mine:
+        return None, None
+    units = {"tensor cores" if "_kernel_tc" in k else "CUDA cores"
+             for k, _ in mine}
+    if len(units) > 1:
+        raise AssertionError(f"{name}: one call ran on both routes {mine}")
+    return sum(u for _, u in mine), units.pop()
 
 
 def m3_route(x, m3, name: str) -> str:
@@ -2375,100 +2381,6 @@ def check_m3_batch_bits(device) -> None:
             bit_equal=all(same.values()))
         if not all(same.values()):
             raise AssertionError(f"m3_fwd: rows 0-36 differ across B {same}")
-
-
-# -- the M3 sources built with -DQKAN_M3_TC=0: the CUDA-core kernels everywhere
-
-M3_OLD_SOURCES = ("qkan_layer_m3.cu", "qkan_layer_m3_tc.cu",
-                  "partial_sum.cu")
-
-
-class OldM3Build(threading.Thread):
-    """The M3 layer's sources compiled with ``-DQKAN_M3_TC=0`` into a
-    library of their own in ``workdir``, in the background (one nvcc
-    process a source, all at once).  ``library()`` waits for it."""
-
-    def __init__(self, workdir: Path):
-        super().__init__()
-        self.workdir, self.error = workdir, None
-        self.path = workdir / "libqkan_m3_old.so"
-
-    def run(self):
-        try:
-            cb, nvcc = _cuda_build, _cuda_build.find_nvcc()
-            objs = [self.workdir / f"{Path(s).stem}.o"
-                    for s in M3_OLD_SOURCES]
-            cb._run_all([[nvcc, *cb.ARCH_FLAGS, "-std=c++17", "-O3",
-                          "-Xcompiler", "-fPIC", "-DQKAN_M3_TC=0", "-c",
-                          "-o", str(o), str(cb.CSRC_DIR / s)]
-                         for s, o in zip(M3_OLD_SOURCES, objs)])
-            cb._run_all([[nvcc, *cb.LINK_FLAGS, "-o", str(self.path),
-                          *map(str, objs)]])
-        except Exception as e:  # raised in library()
-            self.error = e
-
-    def library(self):
-        self.join()
-        if self.error is not None:
-            raise self.error
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib = ctypes.CDLL(str(self.path))
-        lib.qkan_m3_bwd_blocks.argtypes = [ll, i, i, i, i]
-        lib.qkan_m3_bwd_blocks.restype = i
-        lib.qkan_m3_fwd.argtypes = [p, p, p, p, ll, ll, i, i, i, i, p]
-        lib.qkan_m3_bwd.argtypes = [p, p, p, p, p, ll, ll, i, i, i, i, i,
-                                    p, p]
-        lib.qkan_m3_fwd.restype = lib.qkan_m3_bwd.restype = i
-        return lib
-
-
-def _m3_calls(lib, x, m3, g) -> dict:
-    """out (K12), (dx, dM) (K13) and dM (K14) through ``lib``'s C entries,
-    each one launch and the dM pass in the same call."""
-    b, n = x.shape
-    dp1, _, k = m3.shape
-    xb = int(x.dtype == torch.bfloat16)
-    stream = torch.cuda.current_stream().cuda_stream
-    out = torch.empty((b, k), dtype=x.dtype, device=x.device)
-    if lib.qkan_m3_fwd(x.data_ptr(), m3.data_ptr(), out.data_ptr(), None, 0,
-                       b, n, dp1, k, xb, stream):
-        raise RuntimeError("qkan_m3_fwd failed")
-    got = {"m3_fwd": (out,)}
-    for name, want_dx in (("m3_bwd", 1), ("m3_bwd_dw", 0)):
-        nblk = lib.qkan_m3_bwd_blocks(b, n, dp1, k, want_dx)
-        part = torch.empty(nblk * dp1 * n * k, dtype=torch.float32,
-                           device=x.device)
-        dx = torch.empty_like(x) if want_dx else None
-        dm = torch.empty_like(m3)
-        if lib.qkan_m3_bwd(x.data_ptr(), m3.data_ptr(), g.data_ptr(),
-                           dx.data_ptr() if want_dx else None,
-                           part.data_ptr(), part.numel() * 4, b, n, dp1, k,
-                           xb, want_dx, dm.data_ptr(), stream):
-            raise RuntimeError("qkan_m3_bwd failed")
-        got[name] = (dx, dm) if want_dx else (dm,)
-    return got
-
-
-def check_m3_old_routes(device, old: OldM3Build) -> None:
-    """Phase 13a: the calls that keep the CUDA-core kernels (K13 at every shape,
-    K12 / K14 on a bf16 x) give the bits of the ``-DQKAN_M3_TC=0`` build,
-    whose every call runs them."""
-    old_lib = old.library()
-    new_lib = _cuda_build.load_library()
-    for name, x, m3, g in m3_cases(device):
-        if name not in ("headline", "headline_bf16_x", f"N{M3_WIDE[1]}_K"
-                        f"{M3_WIDE[2]}_B{M3_WIDE[0]}", "B4096_bf16_x"):
-            continue
-        kept = [k for k in M3_KERNELS if m3_route(x, m3, k) == "CUDA cores"]
-        a, c = _m3_calls(new_lib, x, m3, g), _m3_calls(old_lib, x, m3, g)
-        torch.cuda.synchronize()
-        same = {k: all(torch.equal(u, v) for u, v in zip(a[k], c[k]))
-                for k in kept}
-        log("kernel", check="m3_pr7_routes_vs_old_build", case=name,
-            dtype=str(x.dtype).split(".")[-1],
-            kept="/".join(kept), same_bits=all(same.values()))
-        if not all(same.values()):
-            raise AssertionError(f"m3 {name}: the CUDA-core route changed {same}")
 
 
 def m3_chain_f64(x, w, x_grad: bool = False):
@@ -2610,8 +2522,11 @@ def time_m3(device, card: str, step_table: dict) -> dict:
             k_ms = median_ms(kern, reps=30)
             p_ms = median_ms(plain, reps=30)
             l_ms = median_ms(lib, reps=30) if lib is not None else None
-            dev = _m3_device_us(device_per_call(kern), name)
-            route = m3_route(x, m3, name)
+            dev, route = _m3_device_us(device_per_call(kern), name)
+            if route != m3_route(x, m3, name):
+                raise AssertionError(
+                    f"{name} {tag}: ran on {route}, its plan says "
+                    f"{m3_route(x, m3, name)}")
             table[(name, tag)] = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                                       bound_ms=b_ms, bound_by=b_by,
                                       bound_units=units,
@@ -3171,9 +3086,6 @@ def main() -> int:
     log("build", seconds=f"{time.perf_counter() - start:.2f}",
         library=_cuda_build.library_path().name, kernels=len(regs),
         max_registers=max(regs), kernels_spilling=len(spills))
-    old_dir = tempfile.TemporaryDirectory()
-    old_m3 = OldM3Build(Path(old_dir.name))
-    old_m3.start()  # the CUDA-core M3 kernels for phase 13a, in the background
 
     errs = {"fused_dw_fwd": check_kernel(device)}
     errs["fused_dw_fwd"] = max(errs["fused_dw_fwd"],
@@ -3208,8 +3120,6 @@ def main() -> int:
     pass_table.update(time_passes(pass_cases(device, "k5"), smi))
     m3_errs = check_m3_kernels(device)
     check_m3_batch_bits(device)
-    check_m3_old_routes(device, old_m3)
-    old_dir.cleanup()
     for name in M3_KERNELS:
         m3_errs[name] = max(m3_errs[name], wide_errs[name])
     m3_chain_ms = run_m3_chain(device, paths)
@@ -3346,7 +3256,8 @@ def main() -> int:
         kernels.append({
             "name": name,
             "route": "cuda",
-            # the units of the call (``m3_tc_plan``); route stays "cuda"
+            # the units the call ran on, from the profiler's kernel names
+            # (held to ``m3_tc_plan``); route stays "cuda"
             "kernel_route": t["kernel_route"],
             "source": f"qkan_implementation_tpu_torch/csrc/{src}",
             "replaces": f"qkan_implementation_tpu/{tpu}",

@@ -11,9 +11,6 @@
 #ifndef QKAN_M3_TC
 #define QKAN_M3_TC 1  // 0: every shape takes the CUDA-core kernels (tools/)
 #endif
-#ifndef QKAN_M3_RING
-#define QKAN_M3_RING 2  // stages of a warp's cp.async ring (tools/ ablate 1)
-#endif
 
 namespace qkan {
 
@@ -22,8 +19,7 @@ constexpr int M3T_GRID = 264;     // forward blocks at most (2 x 132)
 constexpr int M3T_CHUNK = 32;     // backward: rows of a ring stage
 constexpr int M3T_GS = 24;        // backward: g stage row stride (16 + 8)
 constexpr int M3T_DPG = 8;        // backward: degrees a warp at most
-constexpr int M3T_RING = QKAN_M3_RING;
-constexpr long long M3T_SMEM_MAX = 232448;  // a block's shared memory
+constexpr int M3T_RING = 2;       // stages of a warp's cp.async ring
 
 // The tiling of one call.  s: k-steps of 8 features a degree (N padded to
 // 8 s); xs: the x stage's row stride.  Forward: mt m16-tiles (16 rows) a

@@ -33,8 +33,8 @@ the package's build, device µs a call at both shapes: 'no_store' drops
 K12's stores of out, 'no_g_split' takes K14's g fragments as TF32 (no
 split, no lo pass), 'no_mma' drops both kernels' products (their results
 are wrong: they only weigh a part), and 'ring1' builds the warps' cp.async
-rings with one stage (``-DQKAN_M3_RING=1``: a warp waits for each stage's
-copies before it computes).
+rings with one stage (``M3T_RING = 1`` in ``m3_tc.cuh``: a warp waits for
+each stage's copies before it computes).
 
 ``--parent-csrc DIR`` also builds DIR's ``qkan_layer_m3.cu`` and
 ``partial_sum.cu`` (a csrc directory of an earlier commit, e.g. from
@@ -80,6 +80,7 @@ _MMA_FWD = """            mma_3x<false, false>(acc[0][m][n], acc[SETS > 1 ? 1 : 
 _MMA_BWD = """          mma_3x<false, false>(acc[jd], acc[jd], acc[jd], a,
                                b_frag<false>(make_float2(c0, c1)));"""
 _MMA_BWD_G = _MMA_BWD.replace("<false, false>", "<true, false>")
+_RING = "constexpr int M3T_RING = 2;"
 # name -> ({file: [(old, new)]}, nvcc flags)
 ABLATIONS = {
     "no_store": ({"qkan_layer_m3_tc.cu": [
@@ -91,7 +92,7 @@ ABLATIONS = {
         (_MMA_FWD, "            acc[0][m][n][0] += a[m][0].x * b.x;"),
         (_MMA_BWD, "          acc[jd][0] += a[0].x * c0 + a[1].x * c1;")]},
         []),
-    "ring1": ({}, ["-DQKAN_M3_RING=1"]),
+    "ring1": ({"m3_tc.cuh": [(_RING, _RING.replace("= 2;", "= 1;"))]}, []),
 }
 
 
