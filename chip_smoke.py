@@ -146,18 +146,21 @@ Phases, each reported on its own lines:
       K5's own layout) as in phase 6.
 13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
    forward, K13 backward with dx, K14 weight-only backward, the dM pass;
-   K12 and K14 on the tensor cores where ``m3_tc_plan`` takes the call,
-   f32 x: ``csrc/qkan_layer_m3_tc.cu``; K13, a bf16 x and the rest on
+   K12, K13 and K14 on the tensor cores where ``m3_tc_plan`` takes the
+   call, f32 x: ``csrc/qkan_layer_m3_tc.cu``; a bf16 x and the rest on
    the CUDA-core kernels, ``csrc/qkan_layer_m3.cu``):
    a. each kernel against its plain version on the card, twice on the
       same inputs (the same bits both times), with the route each call
       takes: the headline shape (f32 and
       bf16 x), N 16 / K 128 / B 4096, the JAX tests' shapes (B 64 N 4 K 3
       deg 5, B 48 deg 6, B 100 N 3 K 2 deg 3), B 1 with dp1 1 and 2, a bf16
-      x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS; K12's first
-      37 rows of out bit-equal at B 37, 4096 and 262144 (the headline; 37
+      x and x in [-2, 2] (no clip) at B 4096; phase 6's BARS; K13's dM
+      partials equal to K14's bit for bit where both run on the tensor
+      cores in the same block layout; K12's first 37 rows of out and
+      K13's of dx bit-equal at B 37, 4096 and 262144 (the headline; 37
       and 4096 at N16 K128) (``tools/m3_vs_old.py --parent-csrc`` holds
-      K13 and the bf16-x K12 / K14 to an earlier commit's bits);
+      the f32 K12 / K14 and the bf16-x K12 / K13 / K14 to an earlier
+      commit's bits);
    b. bench.py's headline chain in torch: N = K = 16, degree 7,
       B = 262144, w <- w - 1e-7 grad_w sum(qkan_layer_forward_batched_fused
       (x_i, w)^2) for 20 steps on the rotating pool; the start's loss and
@@ -169,7 +172,8 @@ Phases, each reported on its own lines:
       route's units, the FP32 bound beside it; the route read from the
       profiler's kernel names and held to ``m3_tc_plan``) at the
       headline and at N 16 / K 128 / B 4096, and one step (from the
-      weights, and from an M3 leaf) with its device time by kernel,
+      weights, from an M3 leaf, and 13b's in both arguments, which runs
+      K13) with its device time by kernel,
       beside phase 12c's K5 step, the K3 + K4 pair and torch ops; the dM
       pass at both shapes (256 and 16 partials) as in phase 6; one
       wrapper call of each producer with its pass, one library call each
@@ -217,7 +221,7 @@ Bounds (``bound_ms``): the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 FP32 operations over 67 TFLOP/s (H100 SXM data sheet, at 700 W); a
 kernel on the tensor cores (K1-K4 where their plans send a shape there,
-K5's tensor-core step, K12 and K14 by ``m3_tc_plan``) counts its flops as
+K5's tensor-core step, K12-K14 by ``m3_tc_plan``) counts its flops as
 three TF32 passes over 495 TFLOP/s, with the FP32 bound beside it.
 Operations count the contractions' multiply-adds, 2 per FMA, and one per
 add of the partial sums; the elementwise recurrences are left out (under
@@ -2240,18 +2244,19 @@ def time_step(device, card: str) -> dict:
 # -- phase 13: the batched QKAN layer over M3 (K12-K14) ------------------------
 
 # name in the kernels line -> (TPU kernel, its plan's kind, and its
-# device functions: (name, template flags that tell the CUDA-core K13 from K14 in
-# the profiler's demangled or mangled names); the first name is the
-# tensor-core kernel's where there is one, which "m3_fwd_kernel" matches
-# too)
+# device functions: (name, template flags that tell the CUDA-core K13 from
+# K14) in the profiler's demangled or mangled names; the first name is the
+# tensor-core kernel's, which "m3_fwd_kernel" matches too)
 M3_KERNELS = {
     "m3_fwd": ("experimental/pallas_layer.py:60", 0,
                (("m3_fwd_kernel", ()),)),
     "m3_bwd": ("experimental/pallas_layer.py:71", 1,
-               (("m3_bwd_kernel", ("true>", "Lb1E")),)),
+               (("m3_bwd_kernel_tc", ()), ("m3_bwd_kernel<", ("true>",)),
+                ("13m3_bwd_kernelI", ("Lb1E",)))),
     "m3_bwd_dw": ("experimental/pallas_layer.py:198", 2,
                   (("m3_bwd_dw_kernel_tc", ()),
-                   ("m3_bwd_kernel", ("false>", "Lb0E")))),
+                   ("m3_bwd_kernel<", ("false>",)),
+                   ("13m3_bwd_kernelI", ("Lb0E",)))),
 }
 M3_WIDE = (4096, 16, 128, 8)  # B, N, K, dp1: the N16K128 variant
 # the pass tables' rows that the kernels line takes as the passes' own
@@ -2319,15 +2324,17 @@ def m3_cases(device) -> list:
 
 def check_m3_kernels(device) -> dict:
     """Phase 13a: K12, K13, K14 and the dM pass against their plain
-    versions on the card, twice on the same inputs (the same bits);
-    returns the worst error of each over f32 inputs."""
+    versions on the card, twice on the same inputs (the same bits), and
+    K13's dM partials against K14's bits where both run on the tensor
+    cores in the same block layout; returns the worst error of each over
+    f32 inputs."""
     worst = dict.fromkeys([*M3_KERNELS, "m3_dm_sum"], 0.0)
     for name, x, m3, g in m3_cases(device):
         def run():
             dx, part13, _ = pl3._bwd_pass(x, m3, g, True)
             _, part14, _ = pl3._bwd_pass(x, m3, g, False)
             return (qkan_layer_fused(x, m3), dx, pl3.m3_dm_partial_sum(part13),
-                    pl3.m3_dm_partial_sum(part14), part14)
+                    pl3.m3_dm_partial_sum(part14), part14, part13)
 
         got, again = run(), run()
         want_out = qkan_layer_fused_reference(x, m3)
@@ -2352,6 +2359,16 @@ def check_m3_kernels(device) -> dict:
         }
         if not same:
             raise AssertionError(f"m3 kernels {name}: two runs differ")
+        b, (dp1, n, k) = x.shape[0], m3.shape
+        if (m3_route(x, m3, "m3_bwd") == m3_route(x, m3, "m3_bwd_dw")
+                == "tensor cores" and pl3.m3_bwd_layout(b, n, dp1, k, True)
+                == pl3.m3_bwd_layout(b, n, dp1, k, False)):
+            bits = torch.equal(got[5], got[4])
+            log("kernel", check="m3_bwd_dm_partials_vs_k14", case=name,
+                bit_equal=bits)
+            if not bits:
+                raise AssertionError(f"m3_bwd {name}: K13's dM partials "
+                                     "are not K14's bits")
         if x.dtype == torch.float32:
             for k, (err, _) in errs.items():
                 worst[k] = max(worst[k], err)
@@ -2360,8 +2377,9 @@ def check_m3_kernels(device) -> dict:
 
 
 def check_m3_batch_bits(device) -> None:
-    """Phase 13a: K12's first 37 rows of out have the same bits at B 37,
-    4096 and 262144 (the headline; 37 and 4096 at N16 K128)."""
+    """Phase 13a: K12's first 37 rows of out and K13's of dx have the same
+    bits at B 37, 4096 and 262144 (the headline; 37 and 4096 at N16
+    K128)."""
     (hx, _), hw = headline_inputs(device)
     rng = np.random.default_rng(SEED + 20)
     b, n, k, dp1 = M3_WIDE
@@ -2369,18 +2387,26 @@ def check_m3_batch_bits(device) -> None:
                             .astype(np.float32)).to(device)
     for m3, batches in ((weights_to_m3(hw, HN, HK), (37, 4096, HB)),
                         (wide, (37, b))):
-        full = qkan_layer_fused(hx[:batches[-1]].contiguous(), m3)
-        same = {bb: torch.equal(
-            qkan_layer_fused(hx[:bb].contiguous(), m3)[:37], full[:37])
-            for bb in batches[:-1]}
-        torch.cuda.synchronize()
-        log("kernel", check="m3_fwd_rows_0_36_across_B",
-            m3=f"[{m3.shape[0]},{m3.shape[1]},{m3.shape[2]}]",
-            batches="/".join(map(str, batches)),
-            route=f"'{m3_route(hx, m3, 'm3_fwd')}'",
-            bit_equal=all(same.values()))
-        if not all(same.values()):
-            raise AssertionError(f"m3_fwd: rows 0-36 differ across B {same}")
+        g = torch.from_numpy(rng.normal(size=(batches[-1], m3.shape[2]))
+                             .astype(np.float32)).to(device)
+        for name, fn in (
+                ("m3_fwd", lambda bb: qkan_layer_fused(
+                    hx[:bb].contiguous(), m3)),
+                ("m3_bwd", lambda bb: pl3._bwd_pass(
+                    hx[:bb].contiguous(), m3, g[:bb].contiguous(),
+                    True)[0])):
+            full = fn(batches[-1])
+            same = {bb: torch.equal(fn(bb)[:37], full[:37])
+                    for bb in batches[:-1]}
+            torch.cuda.synchronize()
+            log("kernel", check=f"{name}_rows_0_36_across_B",
+                m3=f"[{m3.shape[0]},{m3.shape[1]},{m3.shape[2]}]",
+                batches="/".join(map(str, batches)),
+                route=f"'{m3_route(hx, m3, name)}'",
+                bit_equal=all(same.values()))
+            if not all(same.values()):
+                raise AssertionError(f"{name}: rows 0-36 differ across B "
+                                     f"{same}")
 
 
 def m3_chain_f64(x, w, x_grad: bool = False):
@@ -2510,8 +2536,9 @@ def m3_timing_cases(device, b, n, k, dp1, timed: bool = True) -> tuple:
 def time_m3(device, card: str, step_table: dict) -> dict:
     """Phase 13c: each kernel's event ms, device µs, plain ms and bound at
     the headline shape and at N16/K128/B4096; then one K12 + K14 step at
-    the headline with its device time by kernel, beside phase 12c's K5
-    step, the K3 + K4 pair and torch ops."""
+    the headline (from the weights, from an M3 leaf) and one K12 + K13
+    step in both arguments, with their device time by kernel, beside phase
+    12c's K5 step, the K3 + K4 pair and torch ops."""
     table = {}
     for shape in ((HB, HN, HK, HDEG + 1), M3_WIDE):
         b, n, k, dp1 = shape
@@ -2553,9 +2580,16 @@ def time_m3(device, card: str, step_table: dict) -> dict:
         out = qkan_layer_fused(x, m3_leaf)
         return torch.autograd.grad(torch.sum(out**2), [m3_leaf])
 
+    def step_both():  # 13b's step in both arguments: K12, K13 and P2
+        xl = x.clone().requires_grad_()
+        wl = w.clone().requires_grad_()
+        out = qkan_layer_forward_batched_fused(xl, wl, HN, HK)
+        return torch.autograd.grad(torch.sum(out**2), [xl, wl])
+
     k5 = step_table["headline"]
     for step, fn in (("m3_step_from_w", lambda: m3_step(x, w)),
-                     ("m3_step_from_m3", step_m3)):
+                     ("m3_step_from_m3", step_m3),
+                     ("m3_step_both_args", step_both)):
         ms = median_ms(fn, reps=30)
         kernels = device_per_call(fn)
         dev = sum(us for _, us in kernels) if kernels else None
@@ -3307,7 +3341,7 @@ def main() -> int:
     print(json.dumps({"m3_layer": {
         "chain_ms_per_step": m3_chain_ms / HSTEPS, "steps": HSTEPS,
         "batch": HB, **{k: m3_table[k] for k in (
-            "m3_step_from_w", "m3_step_from_m3")},
+            "m3_step_from_w", "m3_step_from_m3", "m3_step_both_args")},
         "card": smi}}), flush=True)
     print(json.dumps({"backwards_one_call": {**backward_table,
                                              "card": smi}}), flush=True)

@@ -21,21 +21,22 @@
 // Two routes, chosen by the sizes and x's dtype alone (tc_plan below, C
 // entry qkan_m3_tc_plan, mirrored by pallas_layer.py's m3_tc_plan):
 //   - the tensor cores (qkan_layer_m3_tc.cu: m3_fwd_kernel_tc for K12,
-//     m3_bwd_dw_kernel_tc for K14, 3xTF32 mma.sync) for an f32 x where one
-//     launch takes the whole M3 (m3_slices below) and, for K12, M3's
-//     fragments and the warps' rings fit a block's shared memory;
-//   - the FP32 CUDA cores (this file's kernels) for a bf16 x, for
-//     K13 (the backward with dx) at every shape, and for what the plan
-//     refuses.
+//     m3_bwd_kernel_tc for K13, m3_bwd_dw_kernel_tc for K14, 3xTF32
+//     mma.sync) for an f32 x where one launch takes the whole M3
+//     (m3_slices below) and, for K12 and K13, M3's fragments and the
+//     warps' rings fit a block's shared memory (K13: also at most 8 warps
+//     a feature group, K <= 128 at up to 8 degrees);
+//   - the FP32 CUDA cores (this file's kernels) for a bf16 x and for what
+//     the plan refuses.
 // What bounds them on an H100: at the headline layer (B = 262144, N = K =
 // 16, dp1 = 8) the forward reads x (16.8 MB) and writes out (16.8 MB), 10
 // us at 3.35 TB/s, against 2 B N (dp1 - 1) K = 0.94 GFLOP of FMAs, 14 us
 // at 67 TFLOP/s on the CUDA cores (operations) and 5.7 us as three TF32
 // passes on the tensor cores (bytes); K14 reads x and g, the same bytes
-// and FMAs.  K13 does twice the FMAs (28 us on the CUDA cores) for x + g +
-// dx (15 us).  Both routes keep the basis out of device memory (the TPU
-// kernels' point).  -DQKAN_M3_TC=0 sends every shape to this file's
-// kernels (tools/m3_vs_old.py).
+// and FMAs.  K13 does twice the FMAs (28 us on the CUDA cores, 11.4 as
+// three TF32 passes) for x + g + dx (15 us).  Both routes keep the basis
+// out of device memory (the TPU kernels' point).  -DQKAN_M3_TC=0 sends
+// every shape to this file's kernels (tools/m3_vs_old.py).
 //
 // The CUDA-core kernels:
 //
@@ -618,10 +619,10 @@ bool refused(int N, int dp1, int K, int kind) {
   return !fits(sl.nw, dp1, sl.kw, kind);
 }
 
-// The tensor-core route (qkan_layer_m3_tc.cu) and its tiling: an f32 x, K12
-// or K14 (kind 0 or 2; K13 keeps the CUDA cores), an M3 that one launch
-// takes whole (no slices, so the launch counts and carries are the same
-// on both routes), and the block's shared memory within SMEM_LIMIT:
+// The tensor-core route (qkan_layer_m3_tc.cu) and its tiling: an f32 x,
+// an M3 that one launch takes whole (no slices, so the launch counts and
+// carries are the same on both routes), and the block's shared memory
+// within SMEM_LIMIT:
 //   K12: M3's B fragments {hi, lo} of degrees 1 .. D [D s][NTP][32] float4,
 //        colsum(M3[0]) and 8 warps' rings of M3T_RING stages of 16 mt rows
 //        x xs floats (xs: N padded to 8 s, + 8 where that is a multiple of
@@ -633,11 +634,17 @@ bool refused(int N, int dp1, int K, int kind) {
 //        of K, dgn groups of dpg <= M3T_DPG degrees, s groups of 8
 //        features: mg s dgn groups of warps, wr = 8 / groups of them a
 //        group (row splits) where that is more than 1, else gy blocks of 8
-//        groups on the grid's second dimension.
+//        groups on the grid's second dimension;
+//   K13: K14's groups, row splits and rings, dealt to blocks by whole
+//        feature groups (the p = mg dgn groups whose dx partials add up,
+//        8 / p feature groups a block, so p <= 8), plus the block's groups'
+//        M3[d]^T B fragments {hi, lo} (dpg degrees x 2 k-steps x 32 lanes a
+//        group, float4) and, where p > 1, the warps' dx partials [2][8][32
+//        rows][8 features].
 qkan::M3TcPlan tc_plan(int N, int dp1, int K, int kind, int x_is_bf16) {
   qkan::M3TcPlan p{};
-  if (!QKAN_M3_TC || x_is_bf16 || bad_shape(0, N, dp1, K) ||
-      (kind != 0 && kind != 2) || launches(N, dp1, K, kind) != 1) {
+  if (!QKAN_M3_TC || x_is_bf16 || bad_shape(0, N, dp1, K) || kind < 0 ||
+      kind > 2 || launches(N, dp1, K, kind) != 1) {
     return p;
   }
   const long long D = dp1 - 1;
@@ -660,11 +667,20 @@ qkan::M3TcPlan tc_plan(int N, int dp1, int K, int kind, int x_is_bf16) {
     p.dpg = (int)((D + p.dgn - 1) / p.dgn);
     const long long groups = (long long)p.mg * p.s * p.dgn;
     p.wr = groups >= 8 ? 1 : (int)(8 / groups);
-    p.gy = (int)((groups + 7) / 8);
     const long long ring = 4LL * 8 * qkan::M3T_RING * qkan::M3T_CHUNK *
                            (8 + qkan::M3T_GS);
     const long long red = 4LL * 8 * 32 * 4 * (qkan::M3T_DPG + 1);
     p.smem = ring > red ? ring : red;
+    long long per_blk = 8;  // groups a block
+    if (kind == 1) {
+      const long long pg = (long long)p.mg * p.dgn;
+      if (pg > 8) return qkan::M3TcPlan{};
+      per_blk = 8 / pg * pg;
+      const long long wg = groups < per_blk ? groups : per_blk;
+      p.smem += 16 * wg * p.dpg * 2 * 32 +
+                (pg > 1 ? 4LL * 2 * 8 * qkan::M3T_CHUNK * 8 : 0);
+    }
+    p.gy = (int)((groups + per_blk - 1) / per_blk);
   }
   p.ok = p.smem <= SMEM_LIMIT;
   return p;
@@ -798,10 +814,13 @@ extern "C" int qkan_m3_bwd(const void* x, const void* m3, const void* g,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   const qkan::M3TcPlan p = tc_plan(N, dp1, K, kind, x_is_bf16);
-  if (p.ok) {  // K14 on the tensor cores, in the same block layout
-    err = qkan::m3_bwd_dw_tc(static_cast<const float*>(x),
-                             static_cast<const float*>(g), f, B, N, dp1, K,
-                             L.rows, L.nblk, p, s);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  if (p.ok) {  // K13 or K14 on the tensor cores, in the same block layout
+    err = want_dx ? qkan::m3_bwd_tc(xf, gf, m, static_cast<float*>(dx), f, B,
+                                    N, dp1, K, L.rows, L.nblk, p, s)
+                  : qkan::m3_bwd_dw_tc(xf, gf, f, B, N, dp1, K, L.rows,
+                                       L.nblk, p, s);
   } else if (x_is_bf16) {
     err = want_dx ? run_bwd<__nv_bfloat16, true>(x, m, g, dx, f, c, B, N, dp1, K, s)
                   : run_bwd<__nv_bfloat16, false>(x, m, g, dx, f, c, B, N, dp1, K, s);

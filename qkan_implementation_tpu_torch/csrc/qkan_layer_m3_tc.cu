@@ -1,26 +1,29 @@
 // The batched QKAN layer over M3 on the tensor cores (sm_90a): K12's
-// forward m3_fwd_kernel_tc and K14's weight-only backward
-// m3_bwd_dw_kernel_tc, launched by qkan_m3_fwd / qkan_m3_bwd (want_dx = 0)
-// in qkan_layer_m3.cu wherever its tc_plan takes the sizes: an f32 x and an
-// M3 that one launch takes whole.  A bf16 x, K13 (want_dx = 1) and the rest
-// keep qkan_layer_m3.cu's CUDA-core kernels.
+// forward m3_fwd_kernel_tc, K13's backward with dx m3_bwd_kernel_tc and
+// K14's weight-only backward m3_bwd_dw_kernel_tc, launched by qkan_m3_fwd /
+// qkan_m3_bwd (want_dx = 1 / 0) in qkan_layer_m3.cu wherever its tc_plan
+// takes the sizes: an f32 x and an M3 that one launch takes whole.  A bf16
+// x and the rest keep qkan_layer_m3.cu's CUDA-core kernels.
 //
-// Replaces, with those kernels, _fwd_kernel and _bwd_dw_kernel of
-// qkan_implementation_tpu/experimental/pallas_layer.py:
+// Replaces, with those kernels, _fwd_kernel, _bwd_kernel and
+// _bwd_dw_kernel of qkan_implementation_tpu/experimental/pallas_layer.py:
 //
 //     out[b, k]   = sum_{d, n} T_d(x[b, n]) M3[d, n, k]
 //     dM[d, n, k] = sum_b T_d(x[b, n]) g[b, k]      (dM[0, n, :] = colsum(g))
+//     dx[b, n]    = sum_{d>=1} d U_{d-1}(x[b, n]) (g @ M3[d]^T)[b, n]
 //
 // What bounds them on an H100: at the headline (B = 262144, N = K = 16,
-// dp1 = 8) each moves 33.6 MB (x and out, or x and g), 10.0 us at 3.35
-// TB/s; its 0.94 GFLOP take 5.7 us as three TF32 passes at 495 TFLOP/s
-// (14.0 on the FP32 CUDA cores).  Bytes: the kernels should stream x (and
-// g or out) at close to the memory's rate with the products hidden.
+// dp1 = 8) K12 and K14 each move 33.6 MB (x and out, or x and g), 10.0 us
+// at 3.35 TB/s; their 0.94 GFLOP take 5.7 us as three TF32 passes at 495
+// TFLOP/s (14.0 on the FP32 CUDA cores).  K13 moves x, g and dx, 50.3 MB
+// in 15.0 us, for twice the products (11.4 us as 3xTF32, 28.0 on the CUDA
+// cores).  Bytes: the kernels should stream x and g (and out or dx) at
+// close to the memory's rate with the products hidden.
 //
 // Design.  The CUDA-core kernels run on the FP32 cores (a thread a row, M3
 // from shared memory as broadcasts; a thread a (feature, 4 columns, 8
 // degrees) item that runs its own recurrence), so they cannot pass 14 us,
-// and they stage x and g between two barriers with no overlap.  Here both
+// and they stage x and g between two barriers with no overlap.  Here the
 // products run on the tensor cores (mma.sync m16n8k8, 3xTF32: v = hi + lo,
 // hi*hi + lo*hi + hi*lo summed in f32, as K1-K5), and no basis tile
 // exists: each thread computes exactly the basis values its own mma
@@ -56,17 +59,34 @@
 //     partial [dp1][N][K] once; the fixed-order pass of partial_sum.cu sums
 //     the partials, launched by the same entry, in the layout (rows a
 //     block, blocks) of the CUDA-core kernel.
+//   K13 = K14's warps (one device function, the same dM bits) + dx from
+//     the chunk each warp already holds: per m16-tile of its 32 rows and
+//     degree d of its group, C_d = g[rows, its 16 columns] @ M3[d]^T[., its
+//     8 features] (A = g, split once for every degree; B = M3[d]^T, staged
+//     once a block as {hi, lo} fragments), and dx += d U_{d-1}(x) C_d in
+//     the C fragment's places (rows g, g + 8 x features 2t, 2t + 1), U by
+//     its recurrence in registers, d ascending.  Where one warp holds all
+//     of K and every degree (the headline) dx leaves from the fragment;
+//     else the p = mg dgn warps of a feature group (one block: K13 deals
+//     the groups by whole feature groups) add their partials through
+//     shared memory in group order, one named barrier a chunk.
 //
 // On an H100 80GB HBM3 at 700 W (tools/m3_vs_old.py) K12 takes about 19.9
 // us at the headline (the CUDA-core kernel 63.4) and 11.7 at N 16 / K 128
-// (76.9); K14 22.5 (90.3) and 13.0 (111.9).  With no memory traffic at all
-// both take about 19.5 us at the headline: the mma.sync products (143
-// TFLOP/s of TF32) and the basis's ALU set the pace; wgmma is the next
-// step.
+// (76.9); K14 22.5 (90.3) and 13.0 (111.9); K13 44.2 (163.8) and 29.1
+// (213.7).  With no memory traffic at all K12 and K14 take about 19.5 us
+// at the headline: the mma.sync products (143 TFLOP/s of TF32) and the
+// basis's ALU set the pace; wgmma is the next step.  K13's dx products
+// add 11-12 us at the headline rather than hide under the copies; at N 16
+// / K 128 its 32 blocks (16 row blocks x 2 feature groups, K14's layout)
+// run 8 chunks each in sequence, and dx's ALU, barrier and 8-way sum add
+// about 8 us to its products' 4.
 //
-// Bits: no float atomics, the same bits on every run.  A row of out
-// depends on its x, M3 and the plan (sizes alone): the same bits at every
-// B.  dM depends on B through the row blocks, as the CUDA-core kernel's does.
+// Bits: no float atomics, the same bits on every run.  A row of out or dx
+// depends on its x (and g), M3 and the plan (sizes alone): the same bits
+// at every B.  dM depends on B through the row blocks, as the CUDA-core
+// kernel's does; K13's dM partials are K14's wherever the two block
+// layouts (m3_bwd_layout) agree.
 
 #include <cstdint>
 
@@ -76,6 +96,7 @@
 namespace {
 
 using qkan::M3T_CHUNK;
+using qkan::M3T_DPG;
 using qkan::M3T_GRID;
 using qkan::M3T_GS;
 using qkan::M3T_RING;
@@ -310,31 +331,53 @@ m3_fwd_kernel_tc(const float* __restrict__ x, const float* __restrict__ m3,
   }
 }
 
-// -- K14 ----------------------------------------------------------------------
+// -- K13 and K14 ---------------------------------------------------------------
 
-// DG: degrees a warp at most (its dM^T registers), ONE: one group of
-// exactly DG degrees (the headline's 7; else the degrees are checked at run
-// time); S feature groups of 8, MG m16-tiles of K, DGN degree groups of
-// DPG, WR row splits a group.
-template <int DG, bool ONE>
-__global__ void __launch_bounds__(M3T_THREADS, 2)
-m3_bwd_dw_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
-                    float* __restrict__ part, long long B, int N, int dp1,
-                    int K, int rows, int S, int MG, int DGN, int DPG, int WR,
-                    int xvec, int gvec) {
+// K13: the block barrier its warps reach at different places once M3^T
+// is staged (barrier 9, as the row splits take 1-8; the form without
+// .aligned, which allows that)
+__device__ __forceinline__ void staged_barrier() {
+  asm volatile("barrier.sync 9;\n" ::: "memory");
+}
+
+// The backward's warps, K14's (DX false) and K13's (DX true), one body.  DG:
+// degrees a warp at most (its dM^T registers), ONE: one group of exactly
+// DG degrees (the headline's 7; else the degrees are checked at run time);
+// S feature groups of 8, MG m16-tiles of K, DGN degree groups of DPG, WR
+// row splits a group.  K14 deals the groups to blocks of 8, (mg, h, dg)
+// with dg innermost; K13 deals them (h, mg, dg) so that a block holds
+// whole feature groups, the P = MG DGN groups whose dx partials add up
+// (GPB = 8 / P feature groups of them a block).  Each group's dM is the
+// same computation on both: K13's dM partials are K14's bits in the same
+// block layout.
+template <int DG, bool ONE, bool DX>
+__device__ __forceinline__ void m3_bwd_tc_body(
+    const float* __restrict__ x, const float* __restrict__ g,
+    const float* __restrict__ m3, float* __restrict__ dx,
+    float* __restrict__ part, long long B, int N, int dp1, int K, int rows,
+    int S, int MG, int DGN, int DPG, int WR, int xvec, int gvec, int dvec) {
   constexpr int STAGE = M3T_CHUNK * (8 + M3T_GS);  // x [32][8], g [32][GS]
   constexpr int NA = 4 * (DG + 1);                 // dM^T registers a lane
+  // floats of the 8 rings, or of the row splits' sums that reuse them
+  constexpr int RINGS = 8 * M3T_RING * STAGE > 8 * 32 * 4 * (M3T_DPG + 1)
+                            ? 8 * M3T_RING * STAGE
+                            : 8 * 32 * 4 * (M3T_DPG + 1);
+  static_assert(DG <= M3T_DPG, "a warp holds at most M3T_DPG degrees");
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g8 = lane >> 2, t4 = lane & 3;
   // warp -> (group gl of the block's WG, row split wr); group gamma ->
   // (m-tile mg of K, features 8 h .., degrees d_lo .. d_lo + nd)
   const int groups = MG * S * DGN;
-  const int WG = groups < 8 ? groups : 8;
+  const int P = MG * DGN;  // K13: the groups of one feature group
+  const int GPB = DX ? 8 / P * P : 8;
+  const int WG = groups < GPB ? groups : GPB;
   const int gl = warp % WG, wr = warp / WG;
-  const int gamma = blockIdx.y * 8 + gl;
+  const int gamma = blockIdx.y * GPB + gl;
   const bool live = wr < WR && gamma < groups;
-  const int dg = gamma % DGN, h = gamma / DGN % S, mg = gamma / (DGN * S);
+  const int dg = gamma % DGN;
+  const int h = DX ? gamma / P : gamma / DGN % S;
+  const int mg = DX ? gamma / DGN % MG : gamma / (DGN * S);
   const int d_lo = 1 + dg * DPG;
   int nd = dp1 - d_lo < DPG ? dp1 - d_lo : DPG;
   if (!live || nd < 0) nd = 0;
@@ -398,6 +441,52 @@ m3_bwd_dw_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
     if (j < nmine) stage_chunk(j);
     cp_async_commit();
   }
+
+  // K13: M3[d]^T's B fragments of the block's groups, {hi, lo}, staged
+  // once while the first chunks are on their way: fragment ((gl DPG + jd)
+  // 2 + ks) 32 + lane = {M3[d][f][c], M3[d][f][c + 4]}, d = d_lo + jd, f =
+  // 8 h + lane / 4, c = 16 mg + 8 ks + (lane & 3); zero past N, K and D.
+  // A warp waits for them (staged_barrier) before its first dx, or after
+  // the loop where it has no chunk: the first chunk's dM runs meanwhile.
+  // Then each warp's dx partials [2 buffers][8 warps][32 rows][8
+  // features] where P > 1.
+  const float4* bfr = reinterpret_cast<const float4*>(smem + RINGS);
+  float* slots = smem + RINGS + (size_t)4 * WG * DPG * 2 * 32;
+  if (DX) {
+    // eight fragments a thread at once, so their loads are in flight
+    // together
+    float4* dst = reinterpret_cast<float4*>(smem + RINGS);
+    const int nfr = WG * DPG * 2 * 32;
+    for (int e0 = tid; e0 < nfr; e0 += 8 * M3T_THREADS) {
+      float2 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * M3T_THREADS;
+        const int ln = e & 31, ks = (e >> 5) & 1, r = e >> 6;
+        const int jd = r % DPG, gm = blockIdx.y * GPB + r / DPG;
+        const int d = 1 + gm % DGN * DPG + jd;
+        const int f = 8 * (gm / P) + (ln >> 2);
+        const int c = 16 * (gm / DGN % MG) + 8 * ks + (ln & 3);
+        v[u] = make_float2(0.f, 0.f);
+        if (e < nfr && gm < groups && d < dp1 && f < N) {
+          const float* md = m3 + ((size_t)d * N + f) * K;
+          v[u] = make_float2(c < K ? md[c] : 0.f,
+                             c + 4 < K ? md[c + 4] : 0.f);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        if (e0 + u * M3T_THREADS < nfr) {
+          dst[e0 + u * M3T_THREADS] = b_frag<false>(v[u]);
+        }
+      }
+    }
+  }
+  // K13: the warps of this row split, which meet at named barrier 1 + wr
+  // where P > 1 (the block's last feature groups may be fewer)
+  const int in_blk = groups - (int)blockIdx.y * GPB;
+  const int nsplit = in_blk < WG ? in_blk : WG;
+
   for (int j = 0; j < nmine; ++j) {
     if (j + M3T_RING - 1 < nmine) stage_chunk(j + M3T_RING - 1);
     cp_async_commit();
@@ -440,8 +529,108 @@ m3_bwd_dw_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
         }
       }
     }
+
+    if (DX && j == 0) staged_barrier();
+    if (DX) {
+      // dx of the chunk's rows x features f0 .. +8, from this group's
+      // columns and degrees: per m16-tile of rows, C_d = g @ M3[d]^T (A =
+      // g: rows g, g+8 x columns t, t+4, split once for every degree),
+      // then dx += d U_{d-1}(x) C_d in the C fragment's places (rows g,
+      // g+8 x features 2t, 2t+1), d ascending
+      const long long rc = r_begin + (long long)(wr + j * WR) * M3T_CHUNK;
+      float* slot = slots + ((j & 1) * 8 + warp) * (M3T_CHUNK * 8);
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float2 a[2][4];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const float* gr = gs + (m * 16 + g8) * M3T_GS + 8 * ks + t4;
+          a_frag<false>(a[ks], gr[0], gr[8 * M3T_GS], gr[4],
+                        gr[8 * M3T_GS + 4]);
+        }
+        const float2 xa = *reinterpret_cast<const float2*>(
+            xs + (m * 16 + g8) * 8 + 2 * t4);
+        const float2 xb = *reinterpret_cast<const float2*>(
+            xs + (m * 16 + g8 + 8) * 8 + 2 * t4);
+        const float xv[4] = {xa.x, xa.y, xb.x, xb.y};
+        float um[4], uc[4], dt[4];  // U_{d-2}, U_{d-1}, dx
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          um[q] = 0.f;
+          uc[q] = 1.f;
+          dt[q] = 0.f;
+        }
+        for (int d = 1; !ONE && d < d_lo; ++d) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float un = fmaf(2.f * xv[q], uc[q], -um[q]);
+            um[q] = uc[q];
+            uc[q] = un;
+          }
+        }
+        const float4* bq = bfr + (size_t)gl * DPG * 64 + lane;
+#pragma unroll
+        for (int jd = 0; jd < DG; ++jd) {
+          if (ONE || jd < nd) {
+            float cd[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_3x<false, false>(cd, cd, cd, a[0], bq[jd * 64]);
+            mma_3x<false, false>(cd, cd, cd, a[1], bq[jd * 64 + 32]);
+            const float dd = (float)(d_lo + jd);
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              dt[q] = fmaf(dd * uc[q], cd[q], dt[q]);
+              const float un = fmaf(2.f * xv[q], uc[q], -um[q]);
+              um[q] = uc[q];
+              uc[q] = un;
+            }
+          }
+        }
+        if (P == 1) {  // the whole sum: out from the C fragment
+          const int f = f0 + 2 * t4;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const long long row = rc + m * 16 + g8 + 8 * half;
+            if (row < r_end && f < N) {
+              float* o = dx + row * N + f;
+              if (dvec) {  // N even, dx 8-byte aligned
+                *reinterpret_cast<float2*>(o) =
+                    make_float2(dt[2 * half], dt[2 * half + 1]);
+              } else {
+                o[0] = dt[2 * half];
+                if (f + 1 < N) o[1] = dt[2 * half + 1];
+              }
+            }
+          }
+        } else {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            *reinterpret_cast<float2*>(
+                slot + (m * 16 + g8 + 8 * half) * 8 + 2 * t4) =
+                make_float2(dt[2 * half], dt[2 * half + 1]);
+          }
+        }
+      }
+      if (P > 1) {
+        // the P partials of each (row, feature) added in group order (mg,
+        // then dg), the P warps of the feature group sharing the 256 sums;
+        // two buffers, so one barrier a chunk
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wr), "r"(32 * nsplit)
+                     : "memory");
+        const int p = gl % P;
+        const float* first = slots + ((j & 1) * 8 + warp - p) *
+                                         (M3T_CHUNK * 8);
+        for (int e = p * 32 + lane; e < M3T_CHUNK * 8; e += 32 * P) {
+          float sum = first[e];
+          for (int q = 1; q < P; ++q) sum += first[q * (M3T_CHUNK * 8) + e];
+          const long long row = rc + (e >> 3);
+          const int f = f0 + (e & 7);
+          if (row < r_end && f < N) dx[row * N + f] = sum;
+        }
+      }
+    }
     __syncwarp();  // every lane is done with the stage before it refills
   }
+  if (DX && nmine == 0) staged_barrier();
 
   // the row splits' dM^T added in split order through shared memory (the
   // rings' area); each element of the block's partial written once
@@ -492,6 +681,32 @@ m3_bwd_dw_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
+// K14: the dM partials alone
+template <int DG, bool ONE>
+__global__ void __launch_bounds__(M3T_THREADS, 2)
+m3_bwd_dw_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
+                    float* __restrict__ part, long long B, int N, int dp1,
+                    int K, int rows, int S, int MG, int DGN, int DPG, int WR,
+                    int xvec, int gvec) {
+  m3_bwd_tc_body<DG, ONE, false>(x, g, nullptr, nullptr, part, B, N, dp1, K,
+                                 rows, S, MG, DGN, DPG, WR, xvec, gvec, 0);
+}
+
+// K13: K14's dM partials and dx.  BLKS: the blocks an SM holds, 2, or 1
+// where the block's shared memory leaves room for no second one: then the
+// registers are not capped at 128, which measured 3.5 us faster at N 16 /
+// K 128 (tools/m3_vs_old.py's ablations) and cost nothing.
+template <int DG, bool ONE, int BLKS>
+__global__ void __launch_bounds__(M3T_THREADS, BLKS)
+m3_bwd_kernel_tc(const float* __restrict__ x, const float* __restrict__ g,
+                 const float* __restrict__ m3, float* __restrict__ dx,
+                 float* __restrict__ part, long long B, int N, int dp1, int K,
+                 int rows, int S, int MG, int DGN, int DPG, int WR, int xvec,
+                 int gvec, int dvec) {
+  m3_bwd_tc_body<DG, ONE, true>(x, g, m3, dx, part, B, N, dp1, K, rows, S,
+                                MG, DGN, DPG, WR, xvec, gvec, dvec);
+}
+
 template <typename F>
 cudaError_t allow_smem(F kernel, long long bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -518,21 +733,62 @@ cudaError_t launch_fwd(const float* x, const float* m3, float* out,
   return cudaGetLastError();
 }
 
-template <int DG, bool ONE>
-cudaError_t launch_bwd(const float* x, const float* g, float* part,
-                       long long B, int N, int dp1, int K, int rows, int nblk,
-                       const qkan::M3TcPlan& p, cudaStream_t s) {
-  auto kernel = m3_bwd_dw_kernel_tc<DG, ONE>;
-  cudaError_t err = allow_smem(kernel, p.smem);
-  if (err != cudaSuccess) return err;
+// K13 (DX) or K14 in the block layout (rows a block, nblk blocks) of the
+// CUDA-core kernel
+template <int DG, bool ONE, bool DX, int BLKS = 2>
+cudaError_t launch_bwd(const float* x, const float* g, const float* m3,
+                       float* dx, float* part, long long B, int N, int dp1,
+                       int K, int rows, int nblk, const qkan::M3TcPlan& p,
+                       cudaStream_t s) {
   const int xvec =
       N % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   const int gvec =
       K % 4 == 0 && reinterpret_cast<std::uintptr_t>(g) % 16 == 0;
-  kernel<<<dim3(nblk, p.gy), M3T_THREADS, (size_t)p.smem, s>>>(
-      x, g, part, B, N, dp1, K, rows, p.s, p.mg, p.dgn, p.dpg, p.wr, xvec,
-      gvec);
+  const dim3 grid(nblk, p.gy);
+  if constexpr (DX) {
+    auto kernel = m3_bwd_kernel_tc<DG, ONE, BLKS>;
+    const cudaError_t err = allow_smem(kernel, p.smem);
+    if (err != cudaSuccess) return err;
+    const int dvec =
+        N % 2 == 0 && reinterpret_cast<std::uintptr_t>(dx) % 8 == 0;
+    kernel<<<grid, M3T_THREADS, (size_t)p.smem, s>>>(
+        x, g, m3, dx, part, B, N, dp1, K, rows, p.s, p.mg, p.dgn, p.dpg,
+        p.wr, xvec, gvec, dvec);
+  } else {
+    auto kernel = m3_bwd_dw_kernel_tc<DG, ONE>;
+    const cudaError_t err = allow_smem(kernel, p.smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, M3T_THREADS, (size_t)p.smem, s>>>(
+        x, g, part, B, N, dp1, K, rows, p.s, p.mg, p.dgn, p.dpg, p.wr, xvec,
+        gvec);
+  }
   return cudaGetLastError();
+}
+
+template <bool DX>
+cudaError_t run_bwd_tc(const float* x, const float* g, const float* m3,
+                       float* dx, float* part, long long B, int N, int dp1,
+                       int K, int rows, int nblk, const qkan::M3TcPlan& p,
+                       cudaStream_t stream) {
+#define QKAN_M3B(DG, ONE, BLKS)                                          \
+  return launch_bwd<DG, ONE, DX, BLKS>(x, g, m3, dx, part, B, N, dp1, K, \
+                                       rows, nblk, p, stream)
+  // K13 where one block fills an SM's shared memory (only past 4 degrees
+  // a group: at 4, 8 groups' M3^T, the rings and the dx partials take 112
+  // KB) runs with its registers uncapped
+  const bool one = DX && 2 * (p.smem + qkan::M3T_SMEM_RESERVED) >
+                             qkan::M3T_SMEM_SM;
+  // the fast path: the headline's 7 degrees in one group
+  if (dp1 == 8 && p.dgn == 1) {
+    if (one) QKAN_M3B(7, true, 1);
+    QKAN_M3B(7, true, 2);
+  }
+  if (p.dpg <= 1) QKAN_M3B(1, false, 2);
+  if (p.dpg <= 2) QKAN_M3B(2, false, 2);
+  if (p.dpg <= 4) QKAN_M3B(4, false, 2);
+  if (one) QKAN_M3B(8, false, 1);
+  QKAN_M3B(8, false, 2);
+#undef QKAN_M3B
 }
 
 }  // namespace
@@ -564,14 +820,14 @@ cudaError_t qkan::m3_bwd_dw_tc(const float* x, const float* g, float* part,
                                long long B, int N, int dp1, int K, int rows,
                                int nblk, const M3TcPlan& p,
                                cudaStream_t stream) {
-#define QKAN_M3B(DG, ONE) \
-  return launch_bwd<DG, ONE>(x, g, part, B, N, dp1, K, rows, nblk, p, \
-                             stream)
-  // the fast path: the headline's 7 degrees in one group
-  if (dp1 == 8 && p.dgn == 1) QKAN_M3B(7, true);
-  if (p.dpg <= 1) QKAN_M3B(1, false);
-  if (p.dpg <= 2) QKAN_M3B(2, false);
-  if (p.dpg <= 4) QKAN_M3B(4, false);
-  QKAN_M3B(8, false);
-#undef QKAN_M3B
+  return run_bwd_tc<false>(x, g, nullptr, nullptr, part, B, N, dp1, K, rows,
+                           nblk, p, stream);
+}
+
+cudaError_t qkan::m3_bwd_tc(const float* x, const float* g, const float* m3,
+                            float* dx, float* part, long long B, int N,
+                            int dp1, int K, int rows, int nblk,
+                            const M3TcPlan& p, cudaStream_t stream) {
+  return run_bwd_tc<true>(x, g, m3, dx, part, B, N, dp1, K, rows, nblk, p,
+                          stream);
 }

@@ -34,11 +34,12 @@ Each function has two versions:
   it alone; ``ops.fused_layer.fixed_order_sum_reference`` is its plain
   version in its own order).  The entries pick each call's route by the
   sizes and x's dtype alone (``m3_tc_plan``, the mirror of the C entry
-  ``qkan_m3_tc_plan``): K12 and K14 on an f32 x whose M3 one launch
+  ``qkan_m3_tc_plan``): K12, K13 and K14 on an f32 x whose M3 one launch
   takes whole run on the tensor cores (``csrc/qkan_layer_m3_tc.cu``,
   3xTF32 ``mma.sync``, the basis built in registers in the fragments'
-  order); a bf16 x, K13 and what the plan refuses run the CUDA-core
-  kernels (``csrc/qkan_layer_m3.cu``).  A CUDA tensor launches them or
+  order; K13 is K14's warps plus dx from the same staged rows); a bf16 x
+  and what the plan refuses run the CUDA-core kernels
+  (``csrc/qkan_layer_m3.cu``).  A CUDA tensor launches them or
   raises (ValueError for an f64 tensor): there is no fallback to the
   plain version.  Any M3 and any D+1: where a CUDA-core kernel's staging
   of M3 overflows one block's shared memory, the entry runs it over
@@ -150,11 +151,11 @@ class M3TcPlan(NamedTuple):
     mt: int    # K12: m16-tiles (16 rows) a warp's task
     ntw: int   # K12: n8-tiles of K a warp
     ng: int    # K12: groups of ntw n8-tiles
-    mg: int    # K14: m16-tiles of K (16 columns of g a warp)
-    dgn: int   # K14: degree groups
-    dpg: int   # K14: degrees a group
-    wr: int    # K14: row splits (warps) a group in a block
-    gy: int    # K14: the grid's second dimension
+    mg: int    # K13/K14: m16-tiles of K (16 columns of g a warp)
+    dgn: int   # K13/K14: degree groups
+    dpg: int   # K13/K14: degrees a group
+    wr: int    # K13/K14: row splits (warps) a group in a block
+    gy: int    # K13/K14: the grid's second dimension
     smem: int  # a block's dynamic shared memory, bytes
 
 
@@ -163,13 +164,16 @@ def m3_tc_plan(n: int, dp1: int, k: int, kind: int,
     """The route and tiling of a call of ``kind`` (0: K12, 1: K13, 2: K14)
     at these sizes and x dtype: the plain mirror of ``tc_plan()`` in
     ``csrc/qkan_layer_m3.cu`` (C entry ``qkan_m3_tc_plan``).  The tensor
-    cores take K12 and K14 on an f32 x where one launch takes the whole
-    M3 (``m3_slices`` cuts nothing) and the block's shared memory fits:
-    K12 stages M3's fragments {hi, lo} of degrees 1..D beside 8 warps'
-    rings of 2 stages; K14 stages no M3.  A bf16 x, K13 and the rest run
-    the CUDA-core kernels (all fields 0)."""
+    cores take a call on an f32 x where one launch takes the whole M3
+    (``m3_slices`` cuts nothing) and the block's shared memory fits: K12
+    stages M3's fragments {hi, lo} of degrees 1..D beside 8 warps' rings of
+    2 stages; K14 stages no M3; K13 is K14's warps with the block's groups'
+    M3[d]^T fragments {hi, lo} and, where a feature group's dx adds the
+    partials of p = mg * dgn > 1 warps, their two buffers; it takes p <= 8
+    (a feature group's warps in one block).  A bf16 x and the rest run the
+    CUDA-core kernels (all fields 0)."""
     off = M3TcPlan(*[0] * 12)
-    if (x_bf16 or kind not in (_FWD, _BWD_DW) or min(n, dp1, k) < 1
+    if (x_bf16 or kind not in (_FWD, _BWD, _BWD_DW) or min(n, dp1, k) < 1
             or m3_slices(n, dp1, k, kind) != (n, k)):
         return off
     d, s = dp1 - 1, -(-n // 8)
@@ -180,17 +184,26 @@ def m3_tc_plan(n: int, dp1: int, k: int, kind: int,
         ng, mt = -(-nt // ntw), 4 if ntw == 1 else 2
         smem = (16 * d * s * ng * ntw * 32 + 4 * 8 * ng * ntw
                 + 4 * 8 * _TC_RING * 16 * mt * xs)
-        plan = M3TcPlan(1, s, xs, mt, ntw, ng, 0, 0, 0, 0, 0, smem)
-    else:
-        mg = -(-k // 16)
-        dgn = 1 if d <= _TC_DPG else -(-d // _TC_DPG)
-        groups = mg * s * dgn
-        smem = max(4 * 8 * _TC_RING * _TC_CHUNK * (8 + _TC_GS),
-                   4 * 8 * 32 * 4 * (_TC_DPG + 1))
-        plan = M3TcPlan(1, s, 8, 0, 0, 0, mg, dgn, -(-d // dgn),
-                        1 if groups >= 8 else 8 // groups, -(-groups // 8),
-                        smem)
-    return plan if plan.smem <= _SMEM_LIMIT else off
+        return M3TcPlan(1, s, xs, mt, ntw, ng, 0, 0, 0, 0, 0, smem) \
+            if smem <= _SMEM_LIMIT else off
+    mg = -(-k // 16)
+    dgn = 1 if d <= _TC_DPG else -(-d // _TC_DPG)
+    dpg = -(-d // dgn)
+    groups = mg * s * dgn
+    smem = max(4 * 8 * _TC_RING * _TC_CHUNK * (8 + _TC_GS),
+               4 * 8 * 32 * 4 * (_TC_DPG + 1))
+    per_blk = 8  # groups a block
+    if kind == _BWD:
+        pg = mg * dgn  # the warps whose dx partials add up
+        if pg > 8:
+            return off
+        per_blk = 8 // pg * pg
+        smem += (16 * min(groups, per_blk) * dpg * 2 * 32
+                 + (4 * 2 * 8 * _TC_CHUNK * 8 if pg > 1 else 0))
+    plan = M3TcPlan(1, s, 8, 0, 0, 0, mg, dgn, dpg,
+                    1 if groups >= 8 else 8 // groups, -(-groups // per_blk),
+                    smem)
+    return plan if smem <= _SMEM_LIMIT else off
 
 
 def library_m3_tc_plan(n: int, dp1: int, k: int, kind: int,

@@ -299,7 +299,7 @@ def test_tc_plan_entry_equals_its_python_mirror(cuda):
     lib = load_library()
     for n in (1, 3, 8, 16, 40, 64, 300):
         for dp1 in (1, 2, 8, 12, 32, 40):
-            for k in (1, 2, 16, 50, 128, 256):
+            for k in (1, 2, 16, 50, 64, 80, 128, 144, 256):
                 for kind in (0, 1, 2):
                     for x_bf16 in (False, True):
                         assert pl.library_m3_tc_plan(n, dp1, k, kind,
@@ -339,22 +339,24 @@ def _kernel_names(fn) -> set:
     (4096, 16, 128, 8, torch.float32),   # N16 K128
     (37, 3, 2, 2, torch.float32),
     (300, 40, 50, 12, torch.float32),    # K12's M3 fragments overflow
+    (300, 16, 144, 8, torch.float32),    # K13: 9 column groups, refused
     (4096, 16, 16, 8, torch.bfloat16),   # a bf16 x
 ])
 def test_each_call_runs_the_route_of_its_plan(cuda, b, n, k, dp1, x_dtype):
-    """K12 and K14 launch the tensor-core kernels where ``m3_tc_plan``
-    takes the call and the CUDA-core kernels elsewhere; K13 always
-    the CUDA-core kernel."""
+    """K12, K13 and K14 launch the tensor-core kernels where
+    ``m3_tc_plan`` takes the call and the CUDA-core kernels elsewhere."""
     x, m3, g = _inputs(b + k, b, n, k, dp1, x_dtype, cuda)
     bf16 = x_dtype == torch.bfloat16
+    tc_names = ("m3_fwd_kernel_tc", "m3_bwd_kernel_tc", "m3_bwd_dw_kernel_tc")
     for kind, fn in ((0, lambda: qkan_layer_fused(x, m3)),
                      (1, lambda: pl._bwd_pass(x, m3, g, True)),
                      (2, lambda: pl._bwd_pass(x, m3, g, False))):
         names = " ".join(_kernel_names(fn))
         tc = pl.m3_tc_plan(n, dp1, k, kind, bf16).ok
-        tc_name = "m3_fwd_kernel_tc" if kind == 0 else "m3_bwd_dw_kernel_tc"
         old_name = "m3_fwd_kernel<" if kind == 0 else "m3_bwd_kernel<"
-        assert (tc_name in names) == tc, names
+        assert (tc_names[kind] in names) == tc, names
+        assert all(other not in names for i, other in enumerate(tc_names)
+                   if i != kind), names
         assert (old_name in names) == (not tc), names
 
 
@@ -368,3 +370,45 @@ def test_out_rows_are_bit_equal_across_batch(cuda, n, k):
         part = qkan_layer_fused(x[:b].contiguous(), m3)
         torch.cuda.synchronize()
         assert torch.equal(part, full[:b])
+
+
+# shapes where K13 and K14 both take the tensor cores in the same block
+# layout (where K13's CUDA-core tile is narrower, as at N 40 / K 50 / dp1
+# 12, its blocks hold fewer rows and its partials are another fixed sum):
+# the headline, N16 K128 (8 warps a feature group), the parity widths, 31
+# degrees (4 degree groups), 2 x 2 groups over 2 row splits, 4 column
+# groups (two feature groups a block, one in the last) and 4 x 2 groups
+SAME_LAYOUT = [(262144, 16, 16, 8), (4096, 16, 128, 8), (37, 3, 2, 1),
+               (100, 4, 3, 6), (4096, 8, 8, 2), (5000, 1, 1, 32),
+               (3000, 8, 32, 12), (3000, 40, 50, 8), (3000, 24, 50, 12)]
+
+
+@pytest.mark.parametrize("b,n,k,dp1", SAME_LAYOUT)
+def test_k13_dm_partials_are_k14s_bits(cuda, b, n, k, dp1):
+    """On the tensor cores K13 runs K14's warps for dM: where the two
+    block layouts agree its partials are K14's bit for bit, and its dx is
+    within the bar of the plain version."""
+    assert pl.m3_tc_plan(n, dp1, k, 1).ok and pl.m3_tc_plan(n, dp1, k, 2).ok
+    assert pl.m3_bwd_layout(b, n, dp1, k, True) == \
+        pl.m3_bwd_layout(b, n, dp1, k, False)
+    x, m3, g = _inputs(b + dp1, b, n, k, dp1, torch.float32, cuda)
+    dx, part13, _ = pl._bwd_pass(x, m3, g, True)
+    _, part14, _ = pl._bwd_pass(x, m3, g, False)
+    torch.cuda.synchronize()
+    assert torch.equal(part13, part14)
+    _held(dx, qkan_layer_fused_bwd_reference(x, m3, g, True)[0])
+
+
+@pytest.mark.parametrize("n,k,dp1", [(16, 16, 8), (16, 128, 8), (3, 2, 2),
+                                     (1, 1, 32), (8, 32, 12), (40, 50, 12)])
+def test_dx_rows_are_bit_equal_across_batch(cuda, n, k, dp1):
+    """A row of K13's dx has the same bits at every B: its warps compute
+    it from the row's x and g, M3 and the plan alone (rows 0-36 at B 37,
+    4096 and 262144)."""
+    x, m3, g = _inputs(9, 262144, n, k, dp1, torch.float32, cuda)
+    full = pl._bwd_pass(x, m3, g, True)[0]
+    for b in (37, 4096):
+        dx = pl._bwd_pass(x[:b].contiguous(), m3, g[:b].contiguous(),
+                          True)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(dx[:37], full[:37]), b
