@@ -1,5 +1,6 @@
-"""QKAN on PyTorch: the FixedKAN serving and training paths and the
-quantum runtime, for CUDA (Hopper, sm_90a).
+"""QKAN on PyTorch: FixedKAN structure search, training and serving, the
+flagship digits experiment and the quantum runtime, for CUDA (Hopper,
+sm_90a).
 
 A second package beside ``qkan_implementation_tpu`` (the JAX reference),
 with the same module tree, so every module here has one named
@@ -19,16 +20,25 @@ counterpart there.  It imports torch and numpy only.
                   exchange kernel (``sim.rdma``, ``csrc/exchange.cu``).
 - ``parallel`` -- a mesh of device slots and the collectives over them
                   (single-controller, as the JAX package's ``shard_map``).
-- ``models``   -- FixedKAN config, forward (``'xla'`` fold and the
-                  ``'fused'`` / ``'fused_dw'`` kernel backends), gradient
-                  training and npz checkpoints in the JAX package's
-                  format; the QSVT neuron.
+- ``anneal``   -- the degree-selection QUBO and the symbolic QUBO
+                  builder (numpy), and the batched annealers on torch.
+- ``models``   -- FixedKAN config, structure search (``optimize``: the
+                  Gram / QR / SVD degree sweeps and the annealer), forward
+                  (``'xla'`` fold and the ``'fused'`` / ``'fused_dw'``
+                  kernel backends), gradient training and npz checkpoints
+                  in the JAX package's format; the QSVT neuron.
 - ``serving``  -- bucketed batched predictor and a stdlib HTTP server.
-- ``utils``    -- device selection and parameter conversion to and from
-                  numpy.
+- ``data``, ``experiments``, ``analysis`` -- the digits corpus and its
+                  loaders, the flagship digits experiment
+                  (``run_mnist_experiment``) and its sampling diagnostics.
+- ``native_bindings`` -- the C++ annealer (``native/``) through ctypes.
+- ``utils``    -- device selection, parameter conversion to and from
+                  numpy, and JSONL run records.
 
-Structure search and tensor- and pipeline-parallel FixedKAN are not
-ported yet (ROADMAP.md, queue 1).
+Not ported yet (ROADMAP.md, Queue 1): tensor- and pipeline-parallel
+FixedKAN and the mesh-sharded annealers (the rest of the multi-device
+slice), the int8 serving recipes, ``analyze_network`` and the market
+harness.
 """
 
 __version__ = "0.1.0"

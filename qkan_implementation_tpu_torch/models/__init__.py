@@ -1,5 +1,6 @@
-"""FixedKAN (QUBO-structured Chebyshev KAN): config, forward, training,
-checkpoints; and the QSVT neuron (classical vs block-encoded fit).
+"""FixedKAN (QUBO-structured Chebyshev KAN): config, structure search,
+forward, training, checkpoints; and the QSVT neuron (classical vs
+block-encoded fit).
 
 The JAX package's MLP baseline is not ported yet (ROADMAP.md).
 """

@@ -1,15 +1,19 @@
-"""FixedKAN forward, gradient training and checkpoints on torch tensors.
+"""FixedKAN on torch tensors: structure search, forward, gradient
+training and checkpoints.
 
-Counterpart of ``qkan_implementation_tpu.models.fixed_kan``, cut to the
-serving and training paths: the config with its presets, the forward
-precision policy, ``kan_layer_apply`` / ``kan_apply`` on the ``'xla'``
-fold and the ``'fused'`` / ``'fused_dw'`` kernel backends, ``train`` and
+Counterpart of ``qkan_implementation_tpu.models.fixed_kan``: the config
+with its presets; structure search (``optimize``: the per-degree least
+squares sweep on the Gram, QR or SVD route, the degree-selection QUBO and
+the annealer of ``anneal/``, layer by layer); the forward precision
+policy, ``kan_layer_apply`` / ``kan_apply`` on the ``'xla'`` fold and the
+``'fused'`` / ``'fused_dw'`` kernel backends; ``train`` and
 ``train_horizontal_weights`` (Adam with per-group clipping, fan-in
 learning rates and the cosine schedule of the JAX package's optax chain,
-``models._optim``), and the npz checkpoint format, which stays
+``models._optim``); and the npz checkpoint format, which stays
 byte-compatible with the JAX package so a model saved by either loads in
-the other.  Structure search (``optimize``), ``analyze_network`` and
-``visualize_analysis`` are not ported yet (ROADMAP.md queue 1).
+the other.  ``analyze_network`` and ``visualize_analysis`` are not ported
+yet (ROADMAP.md, Queue 1: their item), nor is ``mesh=`` (Queue 1: the
+rest of the multi-device slice).
 
 Parameters are a list of per-layer dicts, as in the JAX package:
 ``degrees [out]`` (int), ``coefficients [out, in, D+1, T]`` and
@@ -20,6 +24,7 @@ from __future__ import annotations
 
 import json
 import logging
+import time
 from dataclasses import asdict, dataclass
 from typing import List, Optional
 
@@ -27,6 +32,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from qkan_implementation_tpu_torch.anneal import (
+    degree_selection_qubo,
+    solve_qubo,
+)
 from qkan_implementation_tpu_torch.models._optim import AdamGroup
 from qkan_implementation_tpu_torch.ops.chebyshev import chebyshev_basis
 from qkan_implementation_tpu_torch.ops.fused_layer import (
@@ -177,6 +186,119 @@ def _xla_matmul(a2d, W, prec):
     )
 
 
+# -- the degree sweep's solves -------------------------------------------
+# Every solve-path product is true FP32 on the card (TF32 off, checked by
+# _check_fp32_matmul), as the JAX package pins "highest" on each: the Gram
+# system is conditioned near 1/ridge, so one-pass products would turn
+# multiply noise into large coefficient error.
+
+
+def _min_norm_lstsq(X: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """numpy.linalg.lstsq's answer (rcond=None) from an SVD: singular
+    values at or below eps * max(B, F) * s_max count as zero, so a
+    rank-deficient design gets the minimum-norm solution.  torch's own
+    lstsq on CUDA has only 'gels', which assumes full rank."""
+    U, S, Vh = torch.linalg.svd(X, full_matrices=False)
+    cutoff = torch.finfo(X.dtype).eps * max(X.shape) * S[:1]
+    inv = torch.where(S > cutoff, 1.0 / S, 0.0)
+    return Vh.mT @ (inv[:, None] * (U.mT @ y))
+
+
+def _lstsq(X: torch.Tensor, y: torch.Tensor, method: str,
+           ridge: float) -> torch.Tensor:
+    """Least-squares solve, [B, F] x [B, T] -> [F, T].
+
+    'svd' gives numpy.linalg.lstsq's min-norm answer (reference
+    KANLayer._optimize_coefficients_classical:190-193); 'normal' solves
+    the ridge-regularized normal equations with Cholesky (NaN where the
+    factorization breaks down, as JAX's solve gives).
+    """
+    if method == "svd":
+        _check_fp32_matmul(X)
+        return _min_norm_lstsq(X, y)
+    if method == "normal":
+        _check_fp32_matmul(X)
+        f = X.shape[1]
+        gram = X.T @ X
+        scale = torch.trace(gram) / f + 1e-30
+        gram = gram + (ridge * scale) * torch.eye(
+            f, dtype=X.dtype, device=X.device
+        )
+        L, info = torch.linalg.cholesky_ex(gram)
+        c = torch.cholesky_solve(X.T @ y, L)
+        return torch.where(info == 0, c, torch.nan)
+    raise ValueError(f"Unknown lstsq method {method!r}")
+
+
+# Relative ridge floor for the f32 QR degree sweep (the JAX package's
+# _QR_RIDGE_F32): a hard R-diagonal drop fits tighter but with max|c| ~
+# 2e5 on the flagship layer 0, coefficients that turn bf16 serving noise
+# into O(1) output error, so the small-norm ridge solution is kept.
+_QR_RIDGE_F32 = 1e-6
+
+
+def _degree_major(basis: torch.Tensor) -> torch.Tensor:
+    """[B, in, D+1] -> [B, (D+1)*in]: cumulative degrees are leading
+    column blocks."""
+    return basis.transpose(1, 2).reshape(basis.shape[0], -1)
+
+
+def _dim_major(c, k: int, d: int, in_dim: int, t_dim: int):
+    """Reorder a degree-major solution's leading-block rows into the
+    dim-major layout the forward pass stores: [d+1, in, T] -> [in, d+1, T]
+    flattened to [k, T].  Shared by the Gram and QR sweeps so the two
+    solver paths cannot diverge in layout."""
+    return c[:k].reshape(d + 1, in_dim, t_dim).transpose(0, 1).reshape(
+        k, t_dim
+    )
+
+
+def _layer_qr_factor(X: torch.Tensor, ridge: float):
+    """R of the ridge-augmented design [X; sqrt(lam) I] (Householder,
+    R only, on X's device): its leading [k, k] block satisfies R_k'R_k =
+    X_k'X_k + lam*I, so ONE factorization serves every cumulative degree,
+    backward-stable where the f32 Gram Cholesky breaks down.  At f32 the
+    relative ridge is at least ``_QR_RIDGE_F32``."""
+    f = X.shape[1]
+    lam = ridge if X.dtype != torch.float32 else max(ridge, _QR_RIDGE_F32)
+    s = torch.sqrt(lam * torch.sum(X * X) / f)
+    eye = torch.eye(f, dtype=X.dtype, device=X.device)
+    return torch.linalg.qr(torch.cat([X, s * eye]), mode="r").R
+
+
+def _qr_solve(X, R, bvec, y, k: int):
+    """Coefficients of the leading k columns (two triangular solves on
+    R[:k, :k] plus one refinement step against the UNRIDGED normal
+    equations, which cancels most of the ridge bias) and the honest
+    full-data MSE.  The JAX package masks R to a traced block size; the
+    leading block's solution is the same, with c[k:] = 0."""
+    Rk, Xk, bk = R[:k, :k], X[:, :k], bvec[:k]
+
+    def rsolve(v):
+        z = torch.linalg.solve_triangular(Rk.mT, v, upper=False)
+        return torch.linalg.solve_triangular(Rk, z, upper=True)
+
+    c = rsolve(bk)
+    c = c + rsolve(bk - Xk.T @ (Xk @ c))
+    return c, torch.mean((y - Xk @ c) ** 2)
+
+
+def _gram_solve(G, bvec, yy, scale, ridge: float, k: int):
+    """Leading-block ridge Cholesky solve of the normal equations with one
+    refinement step against the unridged block, and the residual sum of
+    squares yy - 2 c'b + c'Gc.  ``scale`` is trace(G)/F of the WHOLE Gram
+    matrix, as in the JAX package.  A breakdown (info != 0, where JAX's
+    cho_factor gives NaN) makes the residual NaN, which sends the sweep to
+    its fallback."""
+    Gk, bk = G[:k, :k], bvec[:k]
+    eye = torch.eye(k, dtype=G.dtype, device=G.device)
+    L, info = torch.linalg.cholesky_ex(Gk + (ridge * scale) * eye)
+    c = torch.cholesky_solve(bk, L)
+    c = c + torch.cholesky_solve(bk - Gk @ c, L)
+    res = yy - 2.0 * torch.sum(c * bk) + torch.sum(c * (Gk @ c))
+    return c, torch.where(info == 0, res, torch.nan)
+
+
 def kan_layer_apply(
     layer_params: dict,
     x: torch.Tensor,
@@ -247,7 +369,8 @@ def kan_layer_apply(
     if compute_dtype in _INT8_RECIPES:
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r} needs the int8 matmuls of "
-            "ops/qkan_layer.py, not ported yet (ROADMAP.md queue 1)"
+            "ops/qkan_layer.py, not ported yet (ROADMAP.md, Queue 1: the "
+            "int8 recipes)"
         )
     t = torch.tanh(x)
     basis = chebyshev_basis(t, max_degree, clip=False)  # [B, in, D+1]
@@ -304,6 +427,10 @@ class FixedKAN(nn.Module):
         self.last_train_losses: list = []
         # resolved by train(); None means "never trained"
         self.last_matmul_precision = None
+        # set by optimize()
+        self.last_quantum_resources = None
+        self.last_search_stats: list = []
+        self._sweep_log: list = []
 
     @property
     def params(self) -> Optional[list]:
@@ -343,6 +470,312 @@ class FixedKAN(nn.Module):
             backend=cfg.layer_backend,
             matmul_precision=cfg.forward_matmul_precision,
         )
+
+    # -- structure search ------------------------------------------------
+    def _as_input(self, a) -> torch.Tensor:
+        """A tensor on this model's device; float64 numpy takes torch's
+        default dtype, as ``jnp.asarray`` takes JAX's."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        a = np.asarray(a)
+        dtype = torch.get_default_dtype() if a.dtype == np.float64 else None
+        return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+    def _log_sweep(self, route: str, *tensors) -> None:
+        self._sweep_log.append(
+            {"route": route, "devices": [str(t.device) for t in tensors]}
+        )
+
+    def _evaluate_layer_degrees(self, x_fit: torch.Tensor, y: torch.Tensor):
+        """Per-cumulative-degree lstsq + MSE scores.
+
+        One solve per degree serves every neuron (they share the transform
+        and the target; reference KANLayer.optimize_degrees :127-146).
+        Returns (scores [D+1] numpy, coeffs list of [in*(d+1), T] in
+        dim-major layout, on x_fit's device).
+
+        Routing, as the JAX package's: 'qr' takes the QR sweep (the SVD
+        one when rows < columns); 'svd' the SVD sweep; 'normal' the Gram
+        sweep (one Gram pass, a leading-block Cholesky a degree), except
+        that at float32 its ridge is raised to 1e-4 and a layer with
+        dp1*in*2.4e-7 above it goes to the QR sweep (rows >= columns) or
+        the SVD one, and NaN scores fall back the same way.
+        """
+        cfg = self.config
+        basis = chebyshev_basis(x_fit, cfg.max_degree, clip=False)
+        b, in_dim = basis.shape[0], basis.shape[1]
+        dp1 = cfg.max_degree + 1
+        square_or_tall = b >= dp1 * in_dim
+        if cfg.lstsq_method == "qr":
+            # underdetermined: keep the reference's min-norm SVD semantics
+            if not square_or_tall:
+                return self._svd_fallback(basis, y)
+            return self._qr_sweep(basis, y)
+        if cfg.lstsq_method != "normal":
+            return self._svd_fallback(basis, y, method=cfg.lstsq_method)
+
+        t_dim = y.shape[1]
+        # The design is structurally rank-deficient (T_0 of every input
+        # dim is the same all-ones column), so the Cholesky needs a ridge
+        # above the working precision's floor: 1e-8 at f64, 1e-4 at f32;
+        # and f32 Cholesky breaks down by SIZE once 2 eps_f32 * F exceeds
+        # the relative ridge (F = 4704, the flagship layer 0): those layers
+        # go straight to the QR sweep (JAX fixed_kan.py:610-640).
+        ridge = float(cfg.lstsq_ridge)
+        if basis.dtype == torch.float32:
+            ridge = max(ridge, 1e-4)
+            if dp1 * in_dim * 2.4e-7 > ridge:
+                if square_or_tall:
+                    return self._qr_sweep(basis, y)
+                return self._svd_fallback(basis, y)
+        X = _degree_major(basis)
+        _check_fp32_matmul(X)
+        G, bvec, yy = X.T @ X, X.T @ y, torch.sum(y**2)
+        self._log_sweep("gram", X, G)
+        scale = torch.trace(G) / G.shape[0] + 1e-30
+        res, coeffs = [], []
+        for d in range(dp1):
+            k = (d + 1) * in_dim
+            c, r = _gram_solve(G, bvec, yy, scale, ridge, k)
+            res.append(r)
+            coeffs.append(_dim_major(c, k, d, in_dim, t_dim))
+        # res pools squared residuals over B rows AND T target columns:
+        # normalize by both (the svd and quantum paths' mean); one read to
+        # the host a layer
+        scores = torch.clamp_min(torch.stack(res), 0.0) / (b * t_dim)
+        scores = scores.cpu().numpy().astype(np.float64)
+        if not np.all(np.isfinite(scores)):
+            # conditioning defeated the fast path: never hand NaN scores
+            # to the QUBO
+            if square_or_tall:
+                return self._qr_sweep(basis, y)
+            return self._svd_fallback(basis, y)
+        return scores, coeffs
+
+    def _qr_sweep(self, basis: torch.Tensor, y: torch.Tensor):
+        """One-QR-all-degrees scoring: ridge-augmented Householder QR of
+        the degree-major design matrix (``_layer_qr_factor``), two
+        triangular solves + one unridged refinement per cumulative degree
+        (``_qr_solve``), honest full-data MSE scores.  Requires rows >=
+        columns.  NaN scores fall back to the SVD sweep."""
+        in_dim = basis.shape[1]
+        dp1 = self.config.max_degree + 1
+        t_dim = y.shape[1]
+        X = _degree_major(basis)
+        _check_fp32_matmul(X)
+        R = _layer_qr_factor(X, float(self.config.lstsq_ridge))
+        bvec = X.T @ y
+        self._log_sweep("qr", X, R)
+        res, coeffs = [], []
+        for d in range(dp1):
+            k = (d + 1) * in_dim
+            c, r = _qr_solve(X, R, bvec, y, k)
+            res.append(r)
+            coeffs.append(_dim_major(c, k, d, in_dim, t_dim))
+        scores = torch.stack(res).cpu().numpy().astype(np.float64)
+        if not np.all(np.isfinite(scores)):
+            return self._svd_fallback(basis, y)
+        return scores, coeffs
+
+    def _svd_fallback(self, basis: torch.Tensor, y: torch.Tensor,
+                      method: str = "svd"):
+        """Per-degree lstsq sweep over a precomputed [B, in, D+1] basis:
+        the 'svd' scoring path, and the last-resort fallback of the
+        'normal'/'qr' fast paths."""
+        cfg = self.config
+        b = basis.shape[0]
+        res, coeffs = [], []
+        for d in range(cfg.max_degree + 1):
+            X_d = basis[:, :, : d + 1].reshape(b, -1)
+            c = _lstsq(X_d, y, method, cfg.lstsq_ridge)
+            res.append(torch.mean((y - X_d @ c) ** 2))
+            coeffs.append(c)
+        self._log_sweep(method, X_d)
+        return torch.stack(res).cpu().numpy().astype(np.float64), coeffs
+
+    def _evaluate_layer_degrees_quantum(self, x_fit: torch.Tensor,
+                                        y: torch.Tensor):
+        """Quantum-verified coefficient solves: the design matrix of each
+        cumulative degree is FABLE-encoded, recovered column by column from
+        circuit simulations on this model's device
+        (``ops.quantum.quantum_extract_block_columns``), and used for the
+        solve; the fit is scored on the FULL data classically.  Rows are
+        capped at ``config.quantum_sample_cap`` (evenly strided).  The
+        encoding is built on the host, so this route copies the design
+        matrix there.  Resources per degree go to
+        ``self.last_quantum_resources``.
+        """
+        from qkan_implementation_tpu_torch.ops.quantum import (
+            quantum_extract_block_columns,
+        )
+
+        cfg = self.config
+        basis = chebyshev_basis(x_fit, cfg.max_degree, clip=False)
+        b = basis.shape[0]
+        cap = cfg.quantum_sample_cap
+        sub = (
+            np.linspace(0, b - 1, cap).round().astype(int)
+            if cap and b > cap
+            else np.arange(b)
+        )
+        y_np = y.cpu().numpy()
+        scores, coeffs = [], []
+        for d in range(cfg.max_degree + 1):
+            X = basis[:, :, : d + 1].reshape(b, -1).cpu().numpy()
+            X_rec, circuit, alpha = quantum_extract_block_columns(
+                X[sub], return_encoding=True, device=self.device
+            )
+            self.last_quantum_resources.append(
+                {
+                    "n_qubits": circuit.num_qubits,
+                    "circuit_depth": circuit.depth(),
+                    "gate_count": circuit.gate_count,
+                    "alpha_scaling": float(alpha),
+                    "rows_encoded": int(len(sub)),
+                    "columns_simulated": int(X.shape[1]),
+                }
+            )
+            c = np.linalg.lstsq(X_rec, y_np[sub], rcond=None)[0]
+            pred = X @ c  # score the quantum-fit coefficients on full data
+            scores.append(float(np.mean((y_np - pred) ** 2)))
+            coeffs.append(torch.as_tensor(c, device=self.device))
+        return np.array(scores), coeffs
+
+    def optimize(
+        self,
+        x_data,
+        y_data,
+        num_reads: int = 1000,
+        num_sweeps: int = 1000,
+        seed: int = 0,
+        solver: str = "anneal",
+        use_quantum: bool = False,
+        mesh=None,
+    ) -> None:
+        """QUBO degree selection, layer by layer (FixedKAN.optimize:335-353).
+
+        Every layer is fit against the same target ``y`` and maps [B, in]
+        to [B, target_dim].  The sweep runs on this model's device (the
+        design matrix, its Gram matrix or QR factor, the solves); the
+        scores come to the host once a layer for the QUBO.
+
+        ``solver``: 'anneal' runs the batched annealer on this model's
+        device with the one-hot polish (``anneal.solve_qubo``); 'exact'
+        takes the blockwise optimum directly (the QUBO is per-neuron
+        separable).  ``use_quantum``: route the per-degree solves through
+        the FABLE block-encoding simulator
+        (``_evaluate_layer_degrees_quantum``).
+
+        ``self.last_search_stats`` gets one dict a layer: the sweep's
+        route(s) with the devices of its tensors, the scores, the degrees,
+        and the host seconds of the sweep and of the degree selection.
+        ``mesh`` (data-parallel structure search) is not ported yet.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "optimize(mesh=...) needs the multi-device slice "
+                "(ROADMAP.md, Queue 1: the rest of the multi-device slice)"
+            )
+        if solver not in ("anneal", "exact"):
+            raise ValueError(f"Unknown solver {solver!r}")
+        cfg = self.config
+        x = self._as_input(x_data)
+        y = self._as_input(y_data)
+        if y.dim() == 1:
+            y = y[:, None]
+        # coefficients are float regardless of the target dtype: integer
+        # labels must not truncate the fitted coefficients (numpy's
+        # promotion in the JAX package gives them the default float)
+        c_dtype = (torch.promote_types(y.dtype, torch.float32)
+                   if y.is_floating_point() else torch.get_default_dtype())
+        if not y.is_floating_point():
+            y = y.to(torch.promote_types(x.dtype, y.dtype))
+
+        params = []
+        current = x
+        dp1 = cfg.max_degree + 1
+        self.last_quantum_resources = [] if use_quantum else None
+        self.last_search_stats = []
+        for layer_idx in range(len(cfg.network_shape) - 1):
+            out_dim = cfg.network_shape[layer_idx + 1]
+            x_fit = torch.tanh(current) if cfg.consistent_tanh else current
+            self._sweep_log = []
+            t0 = time.perf_counter()
+            if use_quantum:
+                scores, coeffs = self._evaluate_layer_degrees_quantum(x_fit, y)
+            else:
+                scores, coeffs = self._evaluate_layer_degrees(x_fit, y)
+            t1 = time.perf_counter()
+            model = degree_selection_qubo(
+                scores,
+                num_functions=out_dim,
+                complexity_weight=cfg.complexity_weight,
+                objective=cfg.degree_objective,
+            )
+            if solver == "anneal":
+                sample, _ = solve_qubo(
+                    model,
+                    num_reads=num_reads,
+                    num_sweeps=num_sweeps,
+                    seed=seed + layer_idx,
+                    one_hot_block_size=dp1,
+                    device=self.device,
+                )
+            else:
+                lin = model.h[:dp1] + 0.0  # blocks are identical
+                sample = np.zeros(out_dim * dp1)
+                sample[int(np.argmin(lin))::dp1] = 1.0
+            t2 = time.perf_counter()
+
+            degrees = np.argmax(sample.reshape(out_dim, dp1), axis=1).astype(
+                np.int32
+            )
+            in_dim = current.shape[1]
+            t_dim = y.shape[1]
+            C = torch.zeros((out_dim, in_dim, dp1, t_dim), dtype=c_dtype,
+                            device=self.device)
+            for d in np.unique(degrees):
+                rows = torch.as_tensor(
+                    np.flatnonzero(degrees == d), device=self.device
+                )
+                C[rows, :, : d + 1, :] = coeffs[d].reshape(
+                    in_dim, d + 1, t_dim
+                ).to(C.dtype)
+            layer_params = {
+                "degrees": torch.as_tensor(degrees, device=self.device),
+                "coefficients": C,
+                "horizontal_weights": torch.ones(
+                    out_dim, dtype=C.dtype, device=self.device
+                ),
+            }
+            params.append(layer_params)
+            current = kan_layer_apply(layer_params, current, cfg.max_degree)
+            self.last_search_stats.append({
+                "layer": layer_idx,
+                "sweeps": self._sweep_log,
+                "route": "+".join(e["route"] for e in self._sweep_log)
+                or "quantum",
+                "scores": [float(v) for v in scores],
+                "degrees": degrees.tolist(),
+                "solve_seconds": t1 - t0,
+                "select_seconds": t2 - t1,
+            })
+
+        self.params = params
+
+    def calculate_layer_complexity_weight(self, layer_idx: int,
+                                          degree: int) -> float:
+        """Depth-dependent parabolic complexity weight.
+
+        Port of FixedKAN._calculate_layer_complexity_weight (reference
+        :354-368).  Like the reference, the degree optimizer does not
+        consume it (optimize uses the flat complexity_weight).
+        """
+        num_layers = len(self.config.network_shape) - 1
+        layer_pos = layer_idx / (num_layers - 1) if num_layers > 1 else 0.0
+        layer_scale = 4 * (layer_pos - 0.5) ** 2
+        degree_penalty = degree * (1 + np.log(degree + 1))
+        return self.config.complexity_weight * layer_scale * degree_penalty
 
     # -- gradient training -------------------------------------------------
     def train(
@@ -400,8 +833,8 @@ class FixedKAN(nn.Module):
             return nn.Module.train(self, x_data)
         if mesh is not None:
             raise NotImplementedError(
-                "train(mesh=...) needs the multi-device slice, ROADMAP.md "
-                "queue 1 item 8"
+                "train(mesh=...) needs the multi-device slice (ROADMAP.md, "
+                "Queue 1: the rest of the multi-device slice)"
             )
         if self.params is None:
             raise RuntimeError("Run optimization first.")

@@ -3,7 +3,7 @@ torch tensors.
 
 The quantum-mode layer is ``ops.quantum``.  Not ported yet (ROADMAP.md):
 the int8 serving recipes of ``qkan_layer``
-(``qkan_layer_forward_batched_int8``, Queue 1 item 5).
+(``qkan_layer_forward_batched_int8``; Queue 1: the int8 recipes).
 """
 
 from qkan_implementation_tpu_torch.ops.chebyshev import (

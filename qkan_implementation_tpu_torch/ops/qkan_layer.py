@@ -1,7 +1,7 @@
 """The QKAN layer forward: DILATE/CHEB -> MUL -> LCU -> SUM, on torch.
 
 Counterpart of ``qkan_implementation_tpu.ops.qkan_layer`` (its int8
-serving recipes are not ported yet: ROADMAP.md Queue 1 item 4).  The layer
+serving recipes are not ported yet: ROADMAP.md, Queue 1: the int8 recipes).  The layer
 is a handful of elementwise ops and one reduction, O(d*N*K) work,
 differentiable, with a batched variant as one matmul.
 
@@ -122,7 +122,7 @@ def _compute_dtype(compute_dtype):
     if not isinstance(dtype, torch.dtype) or dtype == torch.int8:
         raise ValueError(
             f"unsupported compute_dtype {compute_dtype!r} (the int8 recipes "
-            "are not ported yet: ROADMAP.md Queue 1 item 4)"
+            "are not ported yet: ROADMAP.md, Queue 1: the int8 recipes)"
         )
     return dtype
 

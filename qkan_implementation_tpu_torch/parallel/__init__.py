@@ -4,7 +4,7 @@ Counterpart of ``qkan_implementation_tpu.parallel``: a ``Mesh`` of slots
 (torch devices, several of which may be one card) and the collective set
 over the list of per-slot tensors of a mesh axis.  Tensor- and
 pipeline-parallel FixedKAN (``tp.py``, ``pp.py``) are not ported yet:
-their functions raise (ROADMAP.md Queue 1 item 8).
+their functions raise (ROADMAP.md, Queue 1: the rest of the multi-device slice).
 """
 
 from qkan_implementation_tpu_torch.parallel.mesh import (
@@ -28,8 +28,9 @@ from qkan_implementation_tpu_torch.parallel.collectives import (
 def _not_ported(name: str):
     def stub(*args, **kwargs):
         raise NotImplementedError(
-            f"{name} is not ported to the torch package yet (ROADMAP.md "
-            "Queue 1 item 8: tensor- and pipeline-parallel FixedKAN)"
+            f"{name} is not ported to the torch package yet (ROADMAP.md, "
+            "Queue 1: the rest of the multi-device slice: tensor- and "
+            "pipeline-parallel FixedKAN)"
         )
 
     stub.__name__ = name

@@ -1,4 +1,5 @@
-"""Device selection and parameter conversion.
+"""Device selection and parameter conversion; JSONL run records live in
+``utils.run_records``.
 
 The JAX package's metrics, profiling and checkpoint helpers are not
 ported yet (ROADMAP.md).

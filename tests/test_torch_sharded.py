@@ -389,7 +389,7 @@ def test_mesh_helpers():
     with pytest.raises(ValueError, match="divide"):
         parallel.shard_batch(torch.arange(6.0), m, "sv")
     for stub in (parallel.kan_apply_tp, parallel.make_pp_train_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        with pytest.raises(NotImplementedError, match="the rest of the multi-device slice"):
             stub()
 
 

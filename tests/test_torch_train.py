@@ -285,7 +285,7 @@ def test_train_errors_and_module_flag():
     with pytest.raises(RuntimeError, match="Run optimization"):
         tkan.train(x, y)
     tkan.params = params_from_numpy(network(0), "cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="the rest of the multi-device slice"):
         tkan.train(x, y, mesh=object())
     for cd in ("int8", "int8x2", "int8x2w", torch.int8):
         with pytest.raises(ValueError, match="zero gradient"):
