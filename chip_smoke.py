@@ -1,7 +1,8 @@
 """Smoke run of the torch port's FixedKAN serving and training paths, its
 quantum runtime, the fused train step, the batched QKAN layer over M3,
-the mesh-sharded statevector, and structure search with the flagship
-digits experiment from raw data, on one CUDA card.
+the mesh-sharded statevector, structure search with the flagship digits
+experiment from raw data, int8 serving and the market-data harness, on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -231,17 +232,47 @@ Phases, each reported on its own lines:
       logits within phase 5's bar of the 'xla' fold in float64 (the gap
       to the FP32 fold is logged beside the FP32 fold's own), and the
       argmax accuracy equal to c's.
+16. the int8 serving recipes (``ops.qkan_layer``, no kernel of ours:
+   the products are ``torch._int_mm``):
+   a. the card's int8 product equal to the exact float64 product of the
+      same operands at the padding edges and the flagship's [B, 4704] @
+      [4704, 32] and [B, 96] @ [96, 10], B in {1, 37, 4096}, each through
+      one ``torch._int_mm`` call;
+   b. 15c's model served through ``FixedKAN(compute_dtype=...)`` and
+      ``BatchedPredictor`` for 'int8x2', 'int8x2w', 'int8' and the FP32
+      fold: 'int8x2' test accuracy within 0.01 of the float model's;
+      every recipe's within 0.01 of the same recipe on the host CPU, and
+      each of its products replayed on the card equal to the CPU's bit
+      for bit; 'int8' warns at fan-in 4704; the errors against the
+      float64 fold in the JAX suite's order (int8x2 < int8x2w < int8);
+      predict p50 at 1, 64 and 4096 rows;
+17. the market harness (``data.pipeline``, ``optim.DegreeOptimizer``,
+   ``models.mlp``, ``experiments.run_experiment``):
+   a. ``benchmarks/market_bench.py``'s degree search at its record's size
+      (hard profile, 250,000 rows x 79 features, seed 0, max_degree 3,
+      1000 reads): the Gram statistics on the card, the 79 degrees JAX's
+      (all 0), the val MSE a degree within 1e-6 of the JAX package's in
+      float64, the best within 1e-6 of the record and its comp-R^2 within
+      1e-7; seconds a stage and the anneal's launches;
+   b. ``run_experiment`` on ``config.yaml``'s models at its 100,000 rows
+      plus a fixed_kan [79, 8, 1], cut in depth only (1 trial, 3 MLP
+      epochs, 2 fixed_kan epochs; logged): finite results, the qkan
+      result equal to a direct fit, the MLP's val MSE falling, the CSV
+      and the JSONL written; one float64 MLP epoch on 8192 rows on the
+      card within 1e-8 of the same epoch on the host CPU; the MLP's ms a
+      step and device busy share.
 
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
 each path of phase 10, the headline step, the M3 chain and its
 both-arguments step, each path of 14b and 14c, the flagship experiment
-and its served model) and read just after;
+and its served model, each int8 recipe's serving and the market
+harness) and read just after;
 launches made to compare
 kernels with their plain versions are not counted.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
-JSON record, and the lines before that structure search's (JSON), the
-sharded paths', the one-call
+JSON record, and the lines before that the market harness's, int8
+serving's and structure search's (JSON), the sharded paths', the one-call
 backwards', the M3 layer's and the headline step's times (JSON), the
 quantum slice's and the train step's.  Any
 failed check raises and the script exits non-zero without those lines.
@@ -271,6 +302,7 @@ import tempfile
 import time
 import urllib.error
 import urllib.request
+import warnings
 from dataclasses import asdict
 from pathlib import Path
 
@@ -286,8 +318,33 @@ from qkan_implementation_tpu_torch.anneal import (
 )
 from qkan_implementation_tpu_torch.anneal import sa as anneal_sa
 from qkan_implementation_tpu_torch.data import load_digits_784, to_one_hot
-from qkan_implementation_tpu_torch.experiments import run_mnist_experiment
+from qkan_implementation_tpu_torch.data.pipeline import (
+    DataPipeline,
+    generate_market_parquet,
+    market_columns,
+)
+from qkan_implementation_tpu_torch.experiments import (
+    run_experiment,
+    run_mnist_experiment,
+)
+from qkan_implementation_tpu_torch.experiments import main as harness_main
+from qkan_implementation_tpu_torch.experiments.config import (
+    DataConfig,
+    get_default_features,
+    load_config,
+)
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
+from qkan_implementation_tpu_torch.models import fixed_kan as fk_mod
+from qkan_implementation_tpu_torch.models.mlp import (
+    MLPConfig,
+    init_mlp,
+    train_mlp,
+)
+from qkan_implementation_tpu_torch.optim import degree_optimizer as dopt
+from qkan_implementation_tpu_torch.optim.degree_optimizer import (
+    DegreeOptimizer,
+)
+from qkan_implementation_tpu_torch.utils.metrics import compute_metrics
 from qkan_implementation_tpu_torch.models.fixed_kan import (
     kan_apply,
     kan_layer_apply,
@@ -329,6 +386,7 @@ from qkan_implementation_tpu_torch.ops.fused_layer import (
 )
 from qkan_implementation_tpu_torch.encoding import fable, fable_runtime_params
 from qkan_implementation_tpu_torch.ops.qkan_layer import (
+    int8_matmul,
     qkan_layer_forward_batched,
 )
 from qkan_implementation_tpu_torch.ops.quantum import (
@@ -3392,9 +3450,10 @@ def run_structure_search(device, smi: str) -> dict:
     return out
 
 
-def run_flagship(device, workdir: Path, paths: dict, smi: str) -> dict:
+def run_flagship(device, workdir: Path, paths: dict, smi: str) -> tuple:
     """Phases 15c and 15d: the flagship experiment from raw digits on the
-    card, then its saved model served on the fused kernels."""
+    card, then its saved model served on the fused kernels.  Returns the
+    saved model's path and the phase's numbers."""
     reset_counts()
     res = run_mnist_experiment(save_dir=str(workdir), verbose=False,
                                device=device, **FLAGSHIP_RUN)
@@ -3464,13 +3523,466 @@ def run_flagship(device, workdir: Path, paths: dict, smi: str) -> dict:
     if served_acc != m["test_accuracy"]:
         raise AssertionError(f"served accuracy {served_acc} != "
                              f"{m['test_accuracy']}")
-    return {"test_accuracy": m["test_accuracy"],
+    return res["model_file"], {"test_accuracy": m["test_accuracy"],
             "train_accuracy": m["train_accuracy"],
             "structure_time_seconds": m["structure_time_seconds"],
             "weight_time_seconds": m["weight_time_seconds"],
             "train_step_ms": step_ms, "served_rel_err": rel,
             "served_rel_err_vs_fp32_fold": rel_fp32,
             "fp32_fold_vs_float64": fp32_own}
+
+
+# -- phase 16: the int8 serving recipes on the card ----------------------------
+
+# the int8 products' shapes: [B, F] @ [F, K], the padding edges of
+# torch._int_mm's route (B <= 16, F or K not a multiple of 8) and the
+# flagship's layer 0 and last layer (16 inputs x 6 degrees -> 10)
+INT8_SHAPES = [(b, f, k) for b in (1, 37, 4096)
+               for f, k in ((4704, 32), (96, 10))] + [
+    (37, 128, 16), (1, 768, 16), (16, 10, 10), (17, 10, 10), (4096, 16, 16)]
+INT8_RECIPES = ("int8x2", "int8x2w", "int8")
+# test accuracy: 'int8x2' within 0.01 of the float model's (the JAX CPU
+# record eval_precision_probe_cpu.json: 'int8x2' 0.8889 against 0.8861 on
+# its own model); every recipe within 0.01 of the same recipe on the
+# host CPU, whose products tests/test_torch_int8.py holds equal to the
+# JAX package's.  On phase 15c's model the JAX package's own 'int8x2w'
+# scores 0.7528 and 'int8' 0.1778 against the float 0.8861
+# (tools/int8_recipes_vs_jax.py on the model the card trained): the
+# basis at one int8 level costs it, so a float bar cannot hold for them
+INT8_ACC_BAR = 0.01
+SERVE_ROWS = (1, 64, 4096)
+
+
+def check_int8_products(device) -> dict:
+    """16a: the card's int8 product against the exact float64 product of
+    the same operands, through ``torch._int_mm`` (spied: every product
+    must go there)."""
+    rng = np.random.default_rng(SEED + 16)
+    calls = []
+    real = torch._int_mm
+
+    def spy(a, b):
+        calls.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b)
+
+    torch._int_mm = spy
+    try:
+        for b, f, k in INT8_SHAPES:
+            qa = torch.as_tensor(rng.integers(-127, 128, (b, f)),
+                                 dtype=torch.int8, device=device)
+            qw = torch.as_tensor(rng.integers(-127, 128, (f, k)),
+                                 dtype=torch.int8, device=device)
+            n0 = len(calls)
+            got = int8_matmul(qa, qw)
+            want = (qa.double() @ qw.double()).to(torch.int32)
+            if len(calls) != n0 + 1:
+                raise AssertionError(f"int8 [{b},{f}]@[{f},{k}] did not run "
+                                     "torch._int_mm")
+            if not (got.device == qa.device and torch.equal(got, want)):
+                raise AssertionError(f"int8 [{b},{f}]@[{f},{k}] differs from "
+                                     "the exact product")
+            log("int8", check="product", shape=f"[{b},{f}]@[{f},{k}]",
+                int_mm=f"{calls[-1][0]}@{calls[-1][1]}", equal=True)
+    finally:
+        torch._int_mm = real
+    return {"shapes": len(INT8_SHAPES), "int_mm_calls": len(calls)}
+
+
+def serve_p50_ms(model, x, rows: int, reps: int = 20) -> float:
+    """Predict p50 (host clock around a synchronised request, as
+    ``BatchedPredictor.stats`` keeps it) at ``rows`` rows."""
+    predictor = BatchedPredictor(model, max_batch=max(SERVE_ROWS))
+    for _ in range(3):
+        predictor.predict(x[:rows])
+    predictor._latencies.clear()
+    for _ in range(reps):
+        predictor.predict(x[:rows])
+    return predictor.stats()["latency_p50_ms"]
+
+
+def run_int8_serving(device, model_file: str, float_acc: float,
+                     paths: dict, smi: str) -> dict:
+    """Phase 16: phase 15's trained flagship served through each int8
+    recipe, and the float path, on the card; each recipe beside the same
+    recipe on the host CPU, whose products are replayed on the card."""
+    out = {"products": check_int8_products(device)}
+    x_test, y_test, _ = load_digits_784(train=False)
+    x_rows = np.concatenate([x_test] * (max(SERVE_ROWS) // len(x_test) + 1))
+    base = FixedKAN.load_model(model_file, device=device)
+    with torch.inference_mode():
+        want = kan_apply(base.params, torch.as_tensor(
+            x_test, dtype=torch.float64, device=device), MAX_DEGREE,
+            backend="xla", matmul_precision="high").cpu().numpy()
+    scale = max(float(np.std(want)), 1.0)
+    errs = {}
+    for recipe in (None, *INT8_RECIPES):
+        name = recipe or "float32"
+        models = {}
+        for where in (device, "cpu"):
+            models[where] = FixedKAN.load_model(model_file, device=where)
+            # the int8 recipes are 'xla' fold products; the float path
+            # beside them is the same fold in FP32
+            models[where].config.layer_backend = "xla"
+            models[where].config.compute_dtype = recipe
+        predictor = BatchedPredictor(models[device], max_batch=512)
+        reset_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            logits = predictor.predict(x_test)
+        paths[f"int8_serve_{name}"] = read_counts()
+        warned = [str(w.message) for w in caught
+                  if "fan-in 4704" in str(w.message)]
+        acc = float((logits.argmax(axis=1) == y_test).mean())
+        err = float(np.abs(logits.astype(np.float64) - want).max())
+        errs[name] = err
+        row = {"test_accuracy": acc, "max_abs_err_vs_f64": err,
+               "err_over_scale": err / scale, "warned": bool(warned),
+               "dtype": str(logits.dtype)}
+        if recipe is not None:
+            row.update(host_cpu_recipe(models["cpu"], x_test, y_test,
+                                       device))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            row.update({f"p50_ms_{r}": serve_p50_ms(models[device], x_rows,
+                                                    r) for r in SERVE_ROWS})
+        out[name] = row
+        log("int8", recipe=name, test_accuracy=f"{acc:.4f}",
+            float_accuracy=f"{float_acc:.4f}",
+            host_cpu_accuracy=f"{row.get('cpu_accuracy', acc):.4f}",
+            products_equal_cpu=row.get("products_equal_cpu", "-"),
+            max_abs_err_vs_f64=f"{err:.3e}",
+            err_over_scale=f"{err / scale:.3e}", warned_fan_in=bool(warned),
+            **{f"p50_ms_{r}": f"{row[f'p50_ms_{r}']:.4f}"
+               for r in SERVE_ROWS},
+            card=f"'{smi}'")
+        if logits.dtype != np.float32:
+            raise AssertionError(f"{name}: output {logits.dtype}")
+        if recipe == "int8x2" and not abs(acc - float_acc) <= INT8_ACC_BAR:
+            raise AssertionError(f"{name}: accuracy {acc} vs {float_acc}")
+        if recipe is not None and not (
+                abs(acc - row["cpu_accuracy"]) <= INT8_ACC_BAR
+                and row["products_equal_cpu"]):
+            raise AssertionError(f"{name}: card {acc} vs host CPU {row}")
+        if (recipe == "int8") != bool(warned):
+            raise AssertionError(f"{name}: fan-in warning {warned}")
+    # the JAX suite's order (test_compute_dtype_int8x2_residual_serving)
+    if not errs["int8x2"] < errs["int8x2w"] < errs["int8"]:
+        raise AssertionError(f"recipe errors out of order: {errs}")
+    out["logit_scale"] = scale
+    return out
+
+
+def host_cpu_recipe(cpu_model, x, labels, device) -> dict:
+    """The same recipe on the host CPU: its accuracy, and each of its
+    int8 products replayed on the card on the same operands, equal bit
+    for bit (the quantisation is elementwise, the products exact)."""
+    calls = []
+    real = {n: getattr(fk_mod, n) for n in ("int8_quantized_matmul",
+                                           "int8_residual_matmul")}
+
+    def spy(fn):
+        def record(a2d, W, **kw):
+            res = fn(a2d, W, **kw)
+            calls.append((fn, a2d, W, kw, res))
+            return res
+        return record
+
+    for n, fn in real.items():
+        setattr(fk_mod, n, spy(fn))
+    try:
+        with torch.inference_mode(), warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            logits = cpu_model(x).numpy()
+    finally:
+        for n, fn in real.items():
+            setattr(fk_mod, n, fn)
+    equal = bool(calls) and all(
+        torch.equal(fn(a.to(device), w.to(device), **kw).cpu(), res)
+        for fn, a, w, kw, res in calls)
+    return {"cpu_accuracy": float((logits.argmax(axis=1) == labels).mean()),
+            "products_equal_cpu": equal, "products": len(calls)}
+
+
+# -- phase 17: the market harness on the card ---------------------------------
+
+# 17a: benchmarks/market_bench.py's recipe (hard profile, 250k rows x 79
+# features, 200 dates, seed 0, max_degree 3, 1000 reads) and the JAX
+# package's numbers for it: the committed float32 record
+# benchmarks/records/market_250k_hard.json, and the same recipe in
+# float64 (x64) on a CPU, per degree
+MARKET = dict(n_rows=250_000, n_features=79, n_dates=200, seed=SEED,
+              profile="hard")
+MARKET_RECORD_MSE = 0.24493307633592082
+MARKET_RECORD_COMP_R2 = 0.04622748733831272
+MARKET_F64_VAL_MSE = [0.2545287878228393, 0.24773059164892783,
+                      0.24553451578699423, 0.24493309358039209]
+MARKET_MSE_RTOL = 1e-6
+MARKET_COMP_R2_ATOL = 1e-7
+# 17b: config.yaml's models at its 100,000 rows, cut in depth only
+CONFIG_YAML = Path(__file__).resolve().parent / "config.yaml"
+HARNESS_CUTS = {"num_trials": 1, "mlp_epochs": 3, "fixed_kan_epochs": 2}
+FIXED_KAN_MODEL = {"model_type": "fixed_kan", "network_shape": [79, 8, 1],
+                   "max_degree": 3, "batch_size": 256,
+                   "learning_rate": 1e-2, "n_epochs": 2}
+# one MLP epoch on the card against the same epoch on the host CPU, float64
+MLP_EPOCH_ROWS = 8192
+MLP_EPOCH_RTOL = 1e-8
+
+
+def market_config(n_rows: int, data_path: str = "(columns)") -> DataConfig:
+    return DataConfig(
+        data_path=data_path, n_rows=n_rows, train_ratio=0.8,
+        feature_cols=get_default_features(), target_col="responder_6",
+        weight_col="weight", date_col="date_id")
+
+
+def run_market_search(device, smi: str) -> dict:
+    """17a: the degree search at the record's size, its Gram statistics
+    on the card."""
+    t0 = time.perf_counter()
+    cols = market_columns(**MARKET)
+    t1 = time.perf_counter()
+    tr, tt, tw, va, vt, vw = DataPipeline(
+        market_config(MARKET["n_rows"]), columns=cols
+    ).load_and_preprocess_data()
+    t2 = time.perf_counter()
+    gram_devices, anneal = [], {}
+    real_stats, real_solve = dopt._gram_stats, dopt.solve_qubo
+
+    def stats_spy(*args, **kw):
+        out = real_stats(*args, **kw)
+        gram_devices.extend(t.device.type for t in out)
+        return out
+
+    def solve_spy(model, **kw):
+        anneal["model"], anneal["kw"] = model, kw
+        anneal["ms"] = host_ms(lambda: anneal.setdefault(
+            "out", real_solve(model, **kw)))
+        return anneal["out"]
+
+    dopt._gram_stats, dopt.solve_qubo = stats_spy, solve_spy
+    try:
+        opt = DegreeOptimizer([MARKET["n_features"], 1], 3, device=device)
+        t3 = time.perf_counter()
+        degrees = opt.optimize_layer(0, tr, tt, weights=tw, num_reads=1000)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        scores, comp_r2 = opt.evaluate_degree(va, vt, weights=vw)
+        t5 = time.perf_counter()
+    finally:
+        dopt._gram_stats, dopt.solve_qubo = real_stats, real_solve
+    # the anneal's launches, from 10 and 40 sweeps carried to 1000 (15a)
+    kw = dict(anneal["kw"])
+    short = {}
+    for k in (10, 40):
+        kw["num_sweeps"] = k
+        short[k] = profiled_launches(
+            lambda kw=kw: real_solve(anneal["model"], **kw))
+    sweeps = anneal["kw"]["num_sweeps"]
+    per_sweep = [(b - a) / 30 for a, b in zip(short[10], short[40])]
+    launches = round(short[10][0] + per_sweep[0] * (sweeps - 10))
+    anneal_device_ms = short[10][1] + per_sweep[1] * (sweeps - 10)
+    best = int(np.argmin(scores))
+    rel64 = [abs(s - r) / r for s, r in zip(scores, MARKET_F64_VAL_MSE)]
+    rel_rec = abs(scores[best] - MARKET_RECORD_MSE) / MARKET_RECORD_MSE
+    gap_r2 = abs(comp_r2[best] - MARKET_RECORD_COMP_R2)
+    out = {
+        "rows": {"train": len(tr), "val": len(va)},
+        "seconds": {"generate": t1 - t0, "pipeline": t2 - t1,
+                    "degree_search": t4 - t3, "val_scoring": t5 - t4},
+        "anneal_ms": anneal["ms"], "anneal_launches": launches,
+        "anneal_device_ms": anneal_device_ms,
+        "val_mse": scores.tolist(), "val_comp_r2": comp_r2.tolist(),
+        "rel_vs_jax_f64": rel64, "best_rel_vs_record": rel_rec,
+        "best_comp_r2_gap": gap_r2,
+        "degree_counts": np.bincount(np.ravel(degrees), minlength=4).tolist(),
+        "gram_devices": sorted(set(gram_devices)),
+    }
+    log("market", check="search", rows=MARKET["n_rows"],
+        train_rows=len(tr), val_rows=len(va),
+        **{f"{k}_s": f"{v:.3f}" for k, v in out["seconds"].items()},
+        anneal_ms=f"{anneal['ms']:.1f}", anneal_launches=launches,
+        anneal_device_ms=f"{anneal_device_ms:.1f}",
+        degree_counts=out["degree_counts"],
+        val_mse="[" + ", ".join(f"{v:.11f}" for v in scores) + "]",
+        rel_vs_jax_f64=f"{max(rel64):.3e}", bar=MARKET_MSE_RTOL,
+        best_val_mse=f"{scores[best]:.17g}", best_rel_vs_record=f"{rel_rec:.3e}",
+        best_comp_r2=f"{comp_r2[best]:.17g}", comp_r2_gap=f"{gap_r2:.3e}",
+        comp_r2_bar=MARKET_COMP_R2_ATOL, gram_on=out["gram_devices"],
+        card=f"'{smi}'")
+    if not gram_devices or set(gram_devices) != {device.type}:
+        raise AssertionError(f"Gram statistics on {set(gram_devices)}")
+    if any(d != 0 for row in degrees for d in row):
+        raise AssertionError(f"degrees {out['degree_counts']} != JAX's "
+                             "(all 0)")
+    if not max(rel64) <= MARKET_MSE_RTOL or not rel_rec <= MARKET_MSE_RTOL:
+        raise AssertionError(f"val MSE {scores} vs JAX {MARKET_F64_VAL_MSE}")
+    if not gap_r2 <= MARKET_COMP_R2_ATOL:
+        raise AssertionError(f"comp-R^2 {comp_r2[best]}")
+    return out
+
+
+def harness_config(tmp: Path, data_path: str) -> Path:
+    """config.yaml as it is, cut in depth, plus a fixed_kan model: written
+    as JSON (a JSON file is YAML too)."""
+    cfg = asdict(load_config(str(CONFIG_YAML)))
+    cfg["data"]["data_path"] = data_path
+    cfg["num_trials"] = HARNESS_CUTS["num_trials"]
+    for m in cfg["models"]:
+        if m["model_type"] == "mlp":
+            m["n_epochs"] = HARNESS_CUTS["mlp_epochs"]
+    fk = dict(FIXED_KAN_MODEL, n_epochs=HARNESS_CUTS["fixed_kan_epochs"])
+    cfg["models"].append(fk)
+    cfg["save_path"], cfg["log_path"] = str(tmp / "results"), str(tmp / "logs")
+    path = tmp / "config.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def mlp_busy_share(device, x, y, w, cfg) -> float:
+    """Device busy share of MLP training steps under torch.profiler: the
+    device time of one epoch on ``x`` over its host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_mlp(cfg, x, y, weights=w, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return sum(us for _, us, _ in device_events(prof)) / 1e6 / wall
+
+
+def run_harness(device, paths: dict, smi: str) -> dict:
+    """17b: ``run_experiment`` on config.yaml's models at its 100,000
+    rows, end to end on the card."""
+    probe = {}
+    for mod in ("pandas", "pyarrow", "yaml", "matplotlib"):
+        try:
+            __import__(mod)
+            probe[mod] = True
+        except ImportError:
+            probe[mod] = False
+    base = load_config(str(CONFIG_YAML))
+    n_rows = base.data.n_rows
+    log("harness", config=CONFIG_YAML.name, rows=n_rows,
+        cuts=f"num_trials {base.num_trials}->{HARNESS_CUTS['num_trials']}, "
+        f"mlp n_epochs "
+        f"{[m.n_epochs for m in base.models if m.model_type == 'mlp'][0]}"
+        f"->{HARNESS_CUTS['mlp_epochs']}, fixed_kan [79, 8, 1] added at "
+        f"{HARNESS_CUTS['fixed_kan_epochs']} epochs", packages=probe)
+    captured = {}
+    real_train = harness_main.train_mlp
+
+    def train_spy(cfg, x, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_train(cfg, x, *args, **kw)
+        torch.cuda.synchronize()
+        steps = len(res[0]) * (len(x) // min(cfg.batch_size, len(x)))
+        captured.update(scores=res[0], seconds=time.perf_counter() - t0,
+                        steps=steps)
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cols = market_columns(n_rows=n_rows, n_features=79, seed=SEED)
+        if probe["pandas"] and probe["pyarrow"]:
+            data_path, columns = str(tmp / "train.parquet"), None
+            generate_market_parquet(data_path, n_rows=n_rows,
+                                    n_features=79, seed=SEED)
+        else:
+            data_path, columns = "(columns)", cols
+        cfg_path = harness_config(tmp, data_path)
+        harness_main.train_mlp = train_spy
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            results = run_experiment(str(cfg_path), device=device,
+                                     columns=columns)
+        finally:
+            harness_main.train_mlp = real_train
+        seconds = time.perf_counter() - t0
+        paths["market_harness"] = read_counts()
+        written = {f: (tmp / "results" / f).exists()
+                   for f in ("results_summary.csv", "runs.jsonl",
+                             "metrics_comparison.png")}
+        records = len((tmp / "results" / "runs.jsonl").read_text()
+                      .splitlines()) if written["runs.jsonl"] else 0
+        # the qkan result against a direct fit / predict on the same arrays
+        tr, tt, tw, va, vt, vw = DataPipeline(
+            market_config(n_rows, data_path), columns=columns
+        ).load_and_preprocess_data()
+        q = next(m for m in base.models if m.model_type == "qkan")
+        direct = DegreeOptimizer(q.network_shape, q.max_degree,
+                                 q.complexity_weight,
+                                 q.significance_threshold, device=device)
+        direct.fit(tr, tt, weights=tw, num_reads=q.num_reads,
+                   seed=base.random_seed)
+        direct_val = compute_metrics(vt, direct.predict(va), vw)
+    out = {"seconds": seconds, "packages": probe, "written": written,
+           "runs_jsonl_records": records, "results": []}
+    for r in results:
+        row = {"model": r.model_name, "mse": r.MSE_Score, "r2": r.R2_Score,
+               "train_time": r.train_time, "val_metrics": r.val_metrics,
+               "params": r.model_params if "mlp" in r.model_name else None}
+        out["results"].append(row)
+        log("harness", model=r.model_name, mse=f"{r.MSE_Score:.10g}",
+            r2=f"{r.R2_Score:.6g}", val_mse=f"{r.val_metrics['mse']:.10g}",
+            val_comp_r2=f"{r.val_metrics['comp_r2']:.6g}",
+            train_time_s=f"{r.train_time:.3f}", card=f"'{smi}'")
+        vals = [r.MSE_Score, r.R2_Score, *r.val_metrics.values(),
+                *r.train_metrics.values()]
+        if not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{r.model_name}: non-finite {vals}")
+    qkan = next(r for r in results if r.model_name.startswith("qkan"))
+    gap = max(abs(qkan.val_metrics[k] - direct_val[k])
+              / max(abs(direct_val[k]), 1e-300) for k in direct_val)
+    scores = captured["scores"]
+    step_ms = captured["seconds"] * 1e3 / captured["steps"]
+    out.update(qkan_vs_direct=gap, mlp_val_mse=scores, mlp_step_ms=step_ms,
+               mlp_steps=captured["steps"])
+    log("harness", check="qkan_vs_direct_fit", rel_gap=f"{gap:.3e}",
+        exact=gap == 0.0, mlp_val_mse=[f"{s:.8f}" for s in scores],
+        mlp_step_ms=f"{step_ms:.4f}", mlp_steps=captured["steps"],
+        seconds=f"{seconds:.2f}", written=written, runs_jsonl=records,
+        card=f"'{smi}'")
+    if not gap <= 1e-12:
+        raise AssertionError(f"qkan val metrics {qkan.val_metrics} vs a "
+                             f"direct fit {direct_val}")
+    if not scores[-1] < scores[0]:
+        raise AssertionError(f"MLP val MSE did not fall: {scores}")
+    if not (written["results_summary.csv"] and written["runs.jsonl"]
+            and records == len(results)):
+        raise AssertionError(f"harness outputs {written}, {records} records")
+
+    # one MLP epoch, float64, card against the host CPU from one start
+    mlp = next(m for m in base.models if m.model_type == "mlp")
+    cfg = MLPConfig(79, mlp.hidden_dims, learning_rate=mlp.learning_rate,
+                    batch_size=mlp.batch_size, n_epochs=1)
+    n = MLP_EPOCH_ROWS
+    args = [torch.as_tensor(a[:n], dtype=torch.float64)
+            for a in (tr, tt, tw, va, vt, vw)]
+    start = init_mlp(cfg, seed=SEED, dtype=torch.float64, device="cpu")
+    val = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        x, y, w, xv, yv, wv = args
+        s, _, _ = train_mlp(cfg, x, y, weights=w, x_val=xv, y_val=yv,
+                            w_val=wv, seed=SEED, device=dev,
+                            init_model=start)
+        val[where] = s[0]
+    rel = abs(val["card"] - val["cpu"]) / abs(val["cpu"])
+    busy = mlp_busy_share(device, *(a.float() for a in args[:3]), cfg)
+    out.update(mlp_epoch_f64={**val, "rel": rel}, mlp_busy_share=busy)
+    log("harness", check="mlp_epoch_f64_card_vs_cpu", rows=n,
+        card_val_mse=f"{val['card']:.15g}", cpu_val_mse=f"{val['cpu']:.15g}",
+        rel=f"{rel:.3e}", bar=MLP_EPOCH_RTOL,
+        busy_share_f32=f"{busy:.3f}", card=f"'{smi}'")
+    if not rel <= MLP_EPOCH_RTOL:
+        raise AssertionError(f"MLP epoch card {val['card']} vs CPU "
+                             f"{val['cpu']}")
+    return out
 
 
 def main() -> int:
@@ -3545,7 +4057,11 @@ def main() -> int:
     anneal_ms = check_annealers(device, smi)
     search = run_structure_search(device, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        flagship = run_flagship(device, Path(tmp), paths, smi)
+        model_file, flagship = run_flagship(device, Path(tmp), paths, smi)
+        int8 = run_int8_serving(device, model_file,
+                                flagship["test_accuracy"], paths, smi)
+    market = {"search": run_market_search(device, smi),
+              "harness": run_harness(device, paths, smi)}
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -3730,6 +4246,8 @@ def main() -> int:
     print(json.dumps({"structure_search": {
         "annealers": anneal_ms, **search, "flagship": flagship,
         "card": smi}}), flush=True)
+    print(json.dumps({"int8_serving": {**int8, "card": smi}}), flush=True)
+    print(json.dumps({"market": {**market, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

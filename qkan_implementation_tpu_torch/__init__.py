@@ -24,21 +24,29 @@ counterpart there.  It imports torch and numpy only.
                   builder (numpy), and the batched annealers on torch.
 - ``models``   -- FixedKAN config, structure search (``optimize``: the
                   Gram / QR / SVD degree sweeps and the annealer), forward
-                  (``'xla'`` fold and the ``'fused'`` / ``'fused_dw'``
-                  kernel backends), gradient training and npz checkpoints
-                  in the JAX package's format; the QSVT neuron.
+                  (``'xla'`` fold with its int8 serving recipes and the
+                  ``'fused'`` / ``'fused_dw'`` kernel backends), gradient
+                  training and npz checkpoints in the JAX package's
+                  format; the MLP baseline; the QSVT neuron.
 - ``serving``  -- bucketed batched predictor and a stdlib HTTP server.
-- ``data``, ``experiments``, ``analysis`` -- the digits corpus and its
-                  loaders, the flagship digits experiment
-                  (``run_mnist_experiment``) and its sampling diagnostics.
+- ``data``, ``experiments``, ``analysis`` -- the market columns and
+                  their pipeline, the digits corpus and its loaders; the
+                  config-driven market harness (``run_experiment``: the
+                  degree optimizer, the MLP baseline and FixedKAN) and the
+                  flagship digits experiment (``run_mnist_experiment``);
+                  the digits sampling diagnostics.
+- ``optim``    -- ``DegreeOptimizer``: the per-edge degree search of one
+                  QKAN layer (Gram statistics on the card, the QUBO, the
+                  annealer) and its prediction.
 - ``native_bindings`` -- the C++ annealer (``native/``) through ctypes.
 - ``utils``    -- device selection, parameter conversion to and from
-                  numpy, and JSONL run records.
+                  numpy, metrics, and JSONL run records.
 
-Not ported yet (ROADMAP.md, Queue 1): tensor- and pipeline-parallel
-FixedKAN and the mesh-sharded annealers (the rest of the multi-device
-slice), the int8 serving recipes, ``analyze_network`` and the market
-harness.
+Not ported yet (ROADMAP.md, Queue 1, in its order): ``analyze_network``
+and ``analysis/{model_analysis,sparsity}``; ``utils/{checkpoint,
+profiling}``; the native circuit helpers; the rest of the multi-device
+slice (tensor- and pipeline-parallel FixedKAN, the mesh-sharded
+annealers).
 """
 
 __version__ = "0.1.0"

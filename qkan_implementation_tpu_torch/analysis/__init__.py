@@ -2,7 +2,7 @@
 
 The JAX package's saved-model inspection (``model_analysis``) and dataset
 sparsity metrics (``sparsity``) are not ported yet (ROADMAP.md, Queue 1:
-the item of ``analyze_network``).
+diagnostics).
 """
 
 from qkan_implementation_tpu_torch.analysis.mnist_diagnostics import (

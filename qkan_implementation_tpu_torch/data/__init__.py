@@ -1,10 +1,11 @@
-"""MNIST / digits loading for the classification pipeline.
+"""Data pipelines: the market columns (Jane Street-shaped, generated from
+a seed or read from parquet) and the MNIST / digits loaders."""
 
-The JAX package's market pipeline (``DataPipeline``,
-``generate_market_parquet``) is not ported yet (ROADMAP.md, Queue 1: the
-market harness).
-"""
-
+from qkan_implementation_tpu_torch.data.pipeline import (
+    DataPipeline,
+    generate_market_parquet,
+    market_columns,
+)
 from qkan_implementation_tpu_torch.data.mnist import (
     load_digits_784,
     load_mnist,
@@ -12,5 +13,6 @@ from qkan_implementation_tpu_torch.data.mnist import (
     to_one_hot,
 )
 
-__all__ = ["load_digits_784", "load_mnist", "sample_train_subset",
+__all__ = ["DataPipeline", "generate_market_parquet", "market_columns",
+           "load_digits_784", "load_mnist", "sample_train_subset",
            "to_one_hot"]

@@ -1,9 +1,6 @@
 """FixedKAN (QUBO-structured Chebyshev KAN): config, structure search,
-forward, training, checkpoints; and the QSVT neuron (classical vs
-block-encoded fit).
-
-The JAX package's MLP baseline is not ported yet (ROADMAP.md).
-"""
+forward, training, checkpoints; the MLP baseline; and the QSVT neuron
+(classical vs block-encoded fit)."""
 
 from qkan_implementation_tpu_torch.models.fixed_kan import (
     FixedKAN,
@@ -11,10 +8,19 @@ from qkan_implementation_tpu_torch.models.fixed_kan import (
     kan_apply,
     kan_layer_apply,
 )
+from qkan_implementation_tpu_torch.models.mlp import (
+    MLP,
+    MLPConfig,
+    init_mlp,
+    mlp_apply,
+    mlp_predict,
+    train_mlp,
+)
 from qkan_implementation_tpu_torch.models.qsvt_neuron import (
     QSVTNeuron,
     compare_classical_quantum,
 )
 
 __all__ = ["FixedKAN", "FixedKANConfig", "kan_apply", "kan_layer_apply",
-           "QSVTNeuron", "compare_classical_quantum"]
+           "MLP", "MLPConfig", "init_mlp", "mlp_apply", "mlp_predict",
+           "train_mlp", "QSVTNeuron", "compare_classical_quantum"]

@@ -12,7 +12,7 @@ learning rates and the cosine schedule of the JAX package's optax chain,
 ``models._optim``); and the npz checkpoint format, which stays
 byte-compatible with the JAX package so a model saved by either loads in
 the other.  ``analyze_network`` and ``visualize_analysis`` are not ported
-yet (ROADMAP.md, Queue 1: their item), nor is ``mesh=`` (Queue 1: the
+yet (ROADMAP.md, Queue 1: diagnostics), nor is ``mesh=`` (Queue 1: the
 rest of the multi-device slice).
 
 Parameters are a list of per-layer dicts, as in the JAX package:
@@ -25,6 +25,7 @@ from __future__ import annotations
 import json
 import logging
 import time
+import warnings
 from dataclasses import asdict, dataclass
 from typing import List, Optional
 
@@ -41,6 +42,10 @@ from qkan_implementation_tpu_torch.ops.chebyshev import chebyshev_basis
 from qkan_implementation_tpu_torch.ops.fused_layer import (
     kan_layer_fused,
     kan_layer_fused_dw,
+)
+from qkan_implementation_tpu_torch.ops.qkan_layer import (
+    int8_quantized_matmul,
+    int8_residual_matmul,
 )
 from qkan_implementation_tpu_torch.utils.convert import (
     params_from_numpy,
@@ -118,7 +123,7 @@ class FixedKANConfig:
 # it get 'high'.  On the card 'high' is true FP32 (TF32 off).
 _FORWARD_PRECISION_MIN_FANIN = 512
 
-# compute_dtype recipes that need ops/qkan_layer.py, not ported yet
+# compute_dtype recipes served by the int8 products of ops/qkan_layer.py
 _INT8_RECIPES = ("int8", "int8x2", "int8x2w")
 
 
@@ -323,6 +328,8 @@ def kan_layer_apply(
     'bf16x2_w'/'bf16x2_x' are the manual two-pass bf16 split.
     ``compute_dtype=torch.bfloat16`` casts the final product's operands
     to bf16 ('xla') or selects the kernel's 'bf16' mode ('fused_dw').
+    ``'int8'`` / ``'int8x2'`` / ``'int8x2w'`` ('xla' only) serve the
+    product through ``ops.qkan_layer``'s int8 recipes (float32 output).
     """
     if backend not in ("xla", "fused", "fused_dw"):
         raise ValueError(
@@ -366,12 +373,6 @@ def kan_layer_apply(
         return kan_layer_fused_dw(
             xin.contiguous(), w_dm, max_degree + 1, True, prec
         )
-    if compute_dtype in _INT8_RECIPES:
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r} needs the int8 matmuls of "
-            "ops/qkan_layer.py, not ported yet (ROADMAP.md, Queue 1: the "
-            "int8 recipes)"
-        )
     t = torch.tanh(x)
     basis = chebyshev_basis(t, max_degree, clip=False)  # [B, in, D+1]
     b = x.shape[0]
@@ -384,6 +385,23 @@ def kan_layer_apply(
     if compute_dtype is None:
         prec = _resolve_forward_precision(matmul_precision, W.shape[0])
         return _xla_matmul(a2d, W, prec)
+    if compute_dtype in ("int8x2", "int8x2w"):
+        return int8_residual_matmul(
+            a2d, W, acts_residual=compute_dtype == "int8x2"
+        )
+    if compute_dtype == "int8":
+        if W.shape[0] >= _FORWARD_PRECISION_MIN_FANIN:
+            # one int8 level's ~4e-3 rounding noise random-walks through a
+            # contraction this wide into O(1) logit error: the JAX package
+            # measured chance accuracy on the flagship with it
+            warnings.warn(
+                f"int8 serving at fan-in {W.shape[0]} >= "
+                f"{_FORWARD_PRECISION_MIN_FANIN}: quantization noise at "
+                "this contraction width measured CHANCE accuracy on the "
+                "flagship shape; use compute_dtype=None or 'int8x2'",
+                stacklevel=2,
+            )
+        return int8_quantized_matmul(a2d, W)
     # bf16io: cast the final product's operands, accumulate in f32
     return _dot_f32(a2d.to(compute_dtype), W.to(compute_dtype))
 

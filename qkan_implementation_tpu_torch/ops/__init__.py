@@ -1,9 +1,8 @@
 """Chebyshev transforms, the QKAN step pipeline and the fused layers, on
 torch tensors.
 
-The quantum-mode layer is ``ops.quantum``.  Not ported yet (ROADMAP.md):
-the int8 serving recipes of ``qkan_layer``
-(``qkan_layer_forward_batched_int8``; Queue 1: the int8 recipes).
+The quantum-mode layer is ``ops.quantum``; the int8 serving recipes are
+in ``qkan_layer``.
 """
 
 from qkan_implementation_tpu_torch.ops.chebyshev import (
@@ -22,6 +21,9 @@ from qkan_implementation_tpu_torch.ops.qkan_layer import (
     sum_step,
     qkan_layer_forward,
     qkan_layer_forward_batched,
+    qkan_layer_forward_batched_int8,
+    int8_quantized_matmul,
+    int8_residual_matmul,
     qkan_intermediates,
 )
 from qkan_implementation_tpu_torch.ops.fused_layer import (
@@ -49,6 +51,9 @@ __all__ = [
     "sum_step",
     "qkan_layer_forward",
     "qkan_layer_forward_batched",
+    "qkan_layer_forward_batched_int8",
+    "int8_quantized_matmul",
+    "int8_residual_matmul",
     "qkan_intermediates",
     "kan_layer_fused",
     "kan_layer_fused_bwd_reference",

@@ -7,7 +7,9 @@ as numpy arrays they are what its npz checkpoints hold.
 torch tensors and back, keys unchanged, so the two packages can run on the
 same parameters.  ``array_from_numpy`` / ``array_to_numpy`` do the same
 for one array: the quantum layer's [D+1, N*K] weights, inputs and
-statevectors.
+statevectors.  ``mlp_from_numpy`` / ``mlp_to_numpy`` carry the MLP
+baseline's ``(params, bn_state)`` pair across to ``models.mlp.MLP`` and
+back.
 """
 
 from __future__ import annotations
@@ -52,3 +54,43 @@ def array_from_numpy(a, device, dtype=None) -> torch.Tensor:
 def array_to_numpy(t: torch.Tensor) -> np.ndarray:
     """One tensor -> a numpy array on the host (detached)."""
     return t.detach().cpu().numpy()
+
+
+def mlp_from_numpy(params, bn_state, config, device, dtype=None):
+    """The JAX package's MLP ``(params, bn_state)`` (numpy leaves:
+    ``bn_scale``, ``bn_bias``, ``layers`` of ``{"w" [in, out], "b"}``;
+    ``mean``, ``var``) -> a ``models.mlp.MLP`` on ``device`` (``dtype``
+    None keeps the arrays' dtype)."""
+    from qkan_implementation_tpu_torch.models.mlp import MLP
+
+    if dtype is None:
+        dtype = torch.from_numpy(np.array(params["bn_scale"])).dtype
+    model = MLP(config, device=device, dtype=dtype)
+    tensors = [
+        (model.bn_scale, params["bn_scale"]),
+        (model.bn_bias, params["bn_bias"]),
+        (model.running_mean, bn_state["mean"]),
+        (model.running_var, bn_state["var"]),
+    ]
+    for w, b, layer in zip(model.weights, model.biases, params["layers"]):
+        tensors += [(w, layer["w"]), (b, layer["b"])]
+    with torch.no_grad():
+        for t, a in tensors:
+            if tuple(t.shape) != np.shape(a):
+                raise ValueError(f"shape {np.shape(a)} != {tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(a)).to(t.dtype))
+    return model
+
+
+def mlp_to_numpy(model) -> tuple:
+    """A ``models.mlp.MLP`` -> ``(params, bn_state)`` of numpy arrays in
+    the JAX package's layout."""
+    params = {
+        "bn_scale": array_to_numpy(model.bn_scale),
+        "bn_bias": array_to_numpy(model.bn_bias),
+        "layers": [{"w": array_to_numpy(w), "b": array_to_numpy(b)}
+                   for w, b in zip(model.weights, model.biases)],
+    }
+    bn_state = {"mean": array_to_numpy(model.running_mean),
+                "var": array_to_numpy(model.running_var)}
+    return params, bn_state

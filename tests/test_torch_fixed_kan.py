@@ -183,8 +183,15 @@ def test_backend_and_dtype_errors():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
     for cd in ("int8", "int8x2", "int8x2w", torch.int8):
-        with pytest.raises(NotImplementedError, match="qkan_layer"):
-            torch_fk.kan_layer_apply(lp, x, 2, compute_dtype=cd)
+        # the 'xla' fold serves the int8 recipes, float32 out, as JAX does
+        got = torch_fk.kan_layer_apply(lp, xr, 2, compute_dtype=cd)
+        want = jax_fk.kan_layer_apply(
+            {k: jnp.asarray(v.numpy()) for k, v in lp.items()},
+            jnp.asarray(xr.numpy()), 2,
+            compute_dtype=jnp.int8 if cd in ("int8", torch.int8) else cd,
+        )
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
         # as in the JAX package: the fused backends have no int8 path
         for backend in ("fused_dw", "fused"):
             with pytest.raises(ValueError, match="int8"):
