@@ -1,8 +1,8 @@
 """Smoke run of the torch port's FixedKAN serving and training paths, its
 quantum runtime, the fused train step, the batched QKAN layer over M3,
 the mesh-sharded statevector, structure search with the flagship digits
-experiment from raw data, int8 serving and the market-data harness, on
-one CUDA card.
+experiment from raw data, int8 serving, the market-data harness, and the
+multi-device paths with the diagnostics, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -261,18 +261,56 @@ Phases, each reported on its own lines:
       and the JSONL written; one float64 MLP epoch on 8192 rows on the
       card within 1e-8 of the same epoch on the host CPU; the MLP's ms a
       step and device busy share.
+18. the multi-device paths, single-controller over slots of the card
+   (``parallel.Mesh``; no kernel of their own), on 15c's trained
+   flagship and its 10,000 rows, each held to the same work on one slot:
+   a. ``kan_apply_tp`` at 4096 rows on a 1-D tp mesh of 8 slots (layer 0
+      sharded, 98 features a slot) and on (dp 4, tp 2) (every layer
+      sharded, the psum-scatters chained): float64 within 1e-10 of
+      max|y| of ``kan_apply``, float32 within 10x the FP32 fold's own gap
+      to float64 of the FP32 fold (the trained layer 0's sums cancel, as
+      in 15d; phase 5's 1e-4 is logged); each tp slot's layer-0 shard
+      holds 1/n_tp of the layer's bytes; host ms a forward;
+   b. 20 ``make_tp_train_step`` steps at batch 64 on (dp 4, tp 2) in
+      float64, each step's loss within 1e-12 max(1, |loss|) and its
+      parameters within 1e-10 max(1, max|p|) of the same SGD step on one
+      slot from the same parameters (the free-running drift is logged);
+      ms a step;
+   c. ``FixedKAN.train(mesh=)`` on dp8 and (dp 2, tp 4), one epoch at
+      batch 64 on 4096 rows (the recommended preset): float64 losses and
+      coefficients within 1e-9 of max|.| of the one-slot run; float32
+      within 10x the one-slot float32-vs-float64 gap (phase 7's rule; the
+      JAX test's bars are logged); ``backend='fused_dw'`` with a mesh
+      raises; ms a step beside phase 7's; the (dp 2, tp 4) busy share;
+   d. the three mesh samplers on a 32 x 6 block QUBO (sweeps cut to 40)
+      at its exact optimum with R' rows; ``optimize(mesh=)`` of the
+      flagship in float32 ('exact', and 'anneal' at 10 sweeps): the
+      one-slot search's degrees, coefficients within rtol 5e-2 / atol
+      2e-2 and forwards within 5e-3 (the JAX test's bars), the route and
+      the slots of each layer's sweep, s a layer;
+   e. ``kan_apply_pp`` and two ``make_pp_train_step`` steps (the lead
+      layer and 3 one-layer stages, 4 microbatches of 16 rows) on 3 slots
+      and on (dp 2, pp 3) in float64, at 18b's bars; ms a step;
+   f. ``analyze_network`` (its output within 1e-10 of ``kan_apply`` in
+      float64), ``extract_degrees_from_checkpoint`` on 15c's npz,
+      ``compute_sparsity`` of a ``generate_market_parquet`` file against
+      the columns' own null count, a ``save_pytree`` / ``load_pytree``
+      round trip of 18b's per-slot parameters bit for bit,
+      ``statevector_native`` (host C++) within 1e-12 of ``sim.simulate``
+      on the card for a 17-qubit FABLE circuit (a main path: the kernels
+      it launches are named), and ``dryrun_multichip(8)`` on 8 slots.
 
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
 each path of phase 10, the headline step, the M3 chain and its
 both-arguments step, each path of 14b and 14c, the flagship experiment
-and its served model, each int8 recipe's serving and the market
-harness) and read just after;
+and its served model, each int8 recipe's serving, the market harness
+and 18f's FABLE simulation) and read just after;
 launches made to compare
 kernels with their plain versions are not counted.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
-JSON record, and the lines before that the market harness's, int8
-serving's and structure search's (JSON), the sharded paths', the one-call
+JSON record, and the lines before that the multi-device phase's, the
+market harness's, int8 serving's and structure search's (JSON), the sharded paths', the one-call
 backwards', the M3 layer's and the headline step's times (JSON), the
 quantum slice's and the train step's.  Any
 failed check raises and the script exits non-zero without those lines.
@@ -309,11 +347,19 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from qkan_implementation_tpu_torch.analysis import (
+    compute_model_stats,
+    compute_sparsity,
+    extract_degrees_from_checkpoint,
+)
 from qkan_implementation_tpu_torch.anneal import (
     QuboModel,
     degree_selection_qubo,
     parallel_tempering,
+    parallel_tempering_mesh_ladder,
+    parallel_tempering_sharded,
     simulated_annealing,
+    simulated_annealing_sharded,
     solve_qubo,
 )
 from qkan_implementation_tpu_torch.anneal import sa as anneal_sa
@@ -352,7 +398,9 @@ from qkan_implementation_tpu_torch.models.fixed_kan import (
 from qkan_implementation_tpu_torch.native_bindings import (
     anneal_native,
     brute_force_native,
+    statevector_native,
 )
+from qkan_implementation_tpu_torch.dryrun import dryrun_multichip
 from qkan_implementation_tpu_torch.experimental import pallas_layer as pl3
 from qkan_implementation_tpu_torch.ops import fused_layer as fl
 from qkan_implementation_tpu_torch.experimental.pallas_layer import (
@@ -392,7 +440,19 @@ from qkan_implementation_tpu_torch.ops.qkan_layer import (
 from qkan_implementation_tpu_torch.ops.quantum import (
     qkan_layer_forward_quantum_batched,
 )
-from qkan_implementation_tpu_torch.parallel import make_mesh
+from qkan_implementation_tpu_torch.parallel import (
+    Mesh,
+    gather_shards,
+    kan_apply_pp,
+    kan_apply_tp,
+    make_mesh,
+    make_pp_train_step,
+    make_tp_train_step,
+    place_pipeline_params,
+    shard_params,
+)
+from qkan_implementation_tpu_torch.parallel import tp as tp_mod
+from qkan_implementation_tpu_torch.parallel.mesh import tree_tensors
 from qkan_implementation_tpu_torch.serving import BatchedPredictor, serve
 from qkan_implementation_tpu_torch.sim import pallas_kernels as pk
 from qkan_implementation_tpu_torch.sim import rdma
@@ -402,6 +462,10 @@ from qkan_implementation_tpu_torch.sim.sharded import (
     count_exchanges,
     shard_memory_report,
     sharded_simulate,
+)
+from qkan_implementation_tpu_torch.utils.checkpoint import (
+    load_pytree,
+    save_pytree,
 )
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
 
@@ -3985,6 +4049,544 @@ def run_harness(device, paths: dict, smi: str) -> dict:
     return out
 
 
+# -- phase 18: the multi-device paths on slots of the card, and diagnostics ----
+
+# 18a/b: rows of the tp forwards, steps and batch of the tp SGD run
+TP_ROWS, TP_STEPS, TP_BATCH = 4096, 20, 64
+# 18c: one epoch at batch 64 on the first 4096 rows (64 steps), the
+# recommended train preset
+MESH_TRAIN_ROWS = 4096
+MESH_TRAIN = dict(epochs=1, batch_size=64, learning_rate=0.002,
+                  loss="cross_entropy", trainable="all", lr_scale="fanin",
+                  lr_schedule="cosine", grad_clip=1.0, seed=SEED)
+# 18d: sweeps of the sharded samplers, cut from 1000 to keep the phase
+# within a minute (8 slots run one after another on one card); widths
+# (reads, chains, replicas, variables) are not cut
+SHARDED_SWEEPS, SHARDED_READS, PT_CHAINS, PT_REPLICAS = 40, 1000, 128, 16
+SEARCH_SWEEPS = 10
+# 18e: microbatches of 16 rows
+PP_MICRO, PP_MICRO_ROWS = 4, 16
+# 18f: FABLE of a 256 x 256 matrix (17 qubits), and the parquet's rows
+SV_FABLE_N, SPARSITY_ROWS = 256, 20000
+
+
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| / max|want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _tree_gap(got, want) -> float:
+    """max over leaves of max|got - want| / max(1, max|want|)."""
+    gap = 0.0
+    for g, w in zip(got, want):
+        for k in w:
+            scale = max(1.0, float(w[k].abs().max()))
+            gap = max(gap, float((g[k] - w[k]).abs().max()) / scale)
+    return gap
+
+
+def _host_ms_median(fn, reps: int = 5) -> float:
+    fn()
+    return float(np.median([host_ms(fn) for _ in range(reps)]))
+
+
+def _hold(name: str, value: float, bar: float) -> None:
+    if not value <= bar:
+        raise AssertionError(f"{name}: {value} above its bar {bar}")
+
+
+def run_tp(device, model, x, labels, smi: str) -> tuple[dict, list]:
+    """18a, 18b: ``kan_apply_tp`` on the flagship and 20 tp SGD steps,
+    against the same work on one slot of the card.  Returns the numbers
+    and 18b's per-slot parameters."""
+    out = {}
+    meshes = {"tp8": Mesh([device] * SLOTS, ("tp",)),
+              "dp4_tp2": Mesh([device] * SLOTS, ("dp", "tp"), (4, 2))}
+    p32 = model.params
+    p64 = [{k: v.double() if v.is_floating_point() else v
+            for k, v in lp.items()} for lp in p32]
+    xb = x[:TP_ROWS]
+    want64 = kan_apply(p64, xb.double(), MAX_DEGREE)
+    want32 = kan_apply(p32, xb, MAX_DEGREE)
+    for name, mesh in meshes.items():
+        flags = tp_mod._tp_layer_flags(p32, mesh.shape["tp"], SHAPE[0])
+        sharded = shard_params(p32, SHAPE[0], mesh)
+        c0 = sharded[0]["coefficients"]
+        whole = p32[0]["coefficients"]
+        share = [s.untyped_storage().nbytes() / (whole.numel()
+                                                 * whole.element_size())
+                 for s in c0.parts]
+        if share != [1 / mesh.shape["tp"]] * mesh.shape["tp"]:
+            raise AssertionError(f"{name}: layer-0 shard bytes {share}")
+        err64 = _rel(kan_apply_tp(shard_params(p64, SHAPE[0], mesh),
+                                  xb.double(), MAX_DEGREE, mesh), want64)
+        err32 = _rel(kan_apply_tp(sharded, xb, MAX_DEGREE, mesh), want32)
+        # the trained layer 0's 4704-term sums cancel: the FP32 fold is
+        # itself ~1e-4 of max|y| from float64 (15d), so splitting them over
+        # slots is held as phase 7 holds float32 runs, within FLOOR_FACTOR
+        # x the FP32 fold's own gap to float64
+        floor32 = _rel(want32.double(), want64)
+        ms = _host_ms_median(lambda: kan_apply_tp(sharded, xb, MAX_DEGREE,
+                                                  mesh))
+        ms1 = _host_ms_median(lambda: kan_apply(p32, xb, MAX_DEGREE))
+        out[f"fwd_{name}"] = {"flags": flags, "rel_err_f64": err64,
+                              "rel_err_f32": err32,
+                              "fp32_fold_vs_f64": floor32, "ms": ms,
+                              "one_slot_ms": ms1,
+                              "layer0_shard_bytes_share": share[0]}
+        log("tp", mesh=name, rows=TP_ROWS, sharded_layers=flags,
+            layer0_features_a_slot=SHAPE[0] // mesh.shape["tp"],
+            rel_err_f64=f"{err64:.3e}", bar_f64=1e-10,
+            rel_err_f32=f"{err32:.3e}",
+            bar_f32=f"{FLOOR_FACTOR * floor32:.3e}",
+            fp32_fold_vs_f64=f"{floor32:.3e}",
+            within_phase5_bar=err32 <= SLICE_RTOL,
+            ms=f"{ms:.3f}", one_slot_ms=f"{ms1:.3f}",
+            layer0_shard_bytes_share=share[0], card=f"'{smi}'")
+        _hold(f"tp {name} f64", err64, 1e-10)
+        _hold(f"tp {name} f32", err32, FLOOR_FACTOR * floor32)
+
+    # 18b: 20 SGD steps on (dp 4, tp 2) in float64, each held to the same
+    # step on one slot from the same parameters; a free-running one-slot
+    # run beside it shows how far the trajectories drift apart
+    mesh = meshes["dp4_tp2"]
+    y = torch.nn.functional.one_hot(labels.long(), T).double()
+    degrees = [lp["degrees"] for lp in p64]
+    train = [{k: v for k, v in lp.items() if k != "degrees"}
+             for lp in shard_params(p64, SHAPE[0], mesh)]
+    free = [{k: v for k, v in lp.items() if k != "degrees"} for lp in p64]
+    step = make_tp_train_step(mesh, MAX_DEGREE)
+
+    def one_slot_step(params, xr, yr):
+        leaves = [{k: v.detach().requires_grad_() for k, v in lp.items()}
+                  for lp in params]
+        full = [dict(lv, degrees=d) for lv, d in zip(leaves, degrees)]
+        loss = torch.mean((kan_apply(full, xr, MAX_DEGREE) - yr) ** 2)
+        grads = iter(torch.autograd.grad(
+            loss, [v for lv in leaves for v in lv.values()]))
+        return ([{k: (v - 1e-3 * next(grads)).detach()
+                  for k, v in lv.items()} for lv in leaves],
+                float(loss.detach()))
+
+    loss_gap, param_gap, tp_s, one_s = 0.0, 0.0, 0.0, 0.0
+    for i in range(TP_STEPS):
+        rows = slice(i * TP_BATCH, (i + 1) * TP_BATCH)
+        xr, yr = x[rows].double(), y[rows]
+        start = gather_shards(train)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train, loss = step(train, degrees, xr, yr)
+        torch.cuda.synchronize()
+        tp_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref, l_ref = one_slot_step(start, xr, yr)
+        torch.cuda.synchronize()
+        one_s += time.perf_counter() - t0
+        free, _ = one_slot_step(free, xr, yr)
+        loss_gap = max(loss_gap, abs(float(loss) - l_ref)
+                       / max(1.0, abs(l_ref)))
+        param_gap = max(param_gap, _tree_gap(gather_shards(train), ref))
+    drift = _tree_gap(gather_shards(train), free)
+    out["sgd_dp4_tp2"] = {"steps": TP_STEPS, "batch": TP_BATCH,
+                          "loss_gap": loss_gap, "param_gap": param_gap,
+                          "free_run_drift": drift,
+                          "ms_per_step": tp_s * 1e3 / TP_STEPS,
+                          "one_slot_ms_per_step": one_s * 1e3 / TP_STEPS}
+    log("tp", check="sgd_dp4_tp2_f64", steps=TP_STEPS, batch=TP_BATCH,
+        loss_gap=f"{loss_gap:.3e}", loss_bar="1e-12 max(1, |loss|)",
+        param_gap=f"{param_gap:.3e}", param_bar="1e-10 max(1, max|p|)",
+        free_run_drift=f"{drift:.3e}",
+        ms_per_step=f"{out['sgd_dp4_tp2']['ms_per_step']:.3f}",
+        one_slot_ms_per_step=f"{out['sgd_dp4_tp2']['one_slot_ms_per_step']:.3f}",
+        card=f"'{smi}'")
+    _hold("tp sgd loss", loss_gap, 1e-12)
+    _hold("tp sgd params", param_gap, 1e-10)
+    return out, train
+
+
+def run_mesh_train(device, model_file, x, labels, step_ms: dict,
+                   smi: str) -> dict:
+    """18c: ``FixedKAN.train(mesh=)`` pure dp and (dp 2, tp 4) from 15c's
+    model, one epoch, against the single-slot ``train`` on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    meshes = {"dp8": make_mesh(SLOTS, axis_name="dp",
+                               devices=[device] * SLOTS),
+              "dp2_tp4": Mesh([device] * SLOTS, ("dp", "tp"), (2, 4))}
+    xs, ys = x[:MESH_TRAIN_ROWS], labels[:MESH_TRAIN_ROWS]
+    steps = MESH_TRAIN_ROWS // MESH_TRAIN["batch_size"]
+    base = {}
+    for dtype in (torch.float64, torch.float32):
+        runs = {}
+        for name, mesh in (("one_slot", None), *meshes.items()):
+            kan = FixedKAN.load_model(model_file, device=device)
+            kan.params = [{k: v.to(dtype) if v.is_floating_point() else v
+                           for k, v in lp.items()} for lp in kan.params]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = kan.train(xs.to(dtype), ys, mesh=mesh, **MESH_TRAIN)
+            torch.cuda.synchronize()
+            runs[name] = (np.asarray(losses), kan.params,
+                          (time.perf_counter() - t0) * 1e3 / steps)
+        base[dtype] = runs["one_slot"]
+        base_l, base_p, base_ms = base[dtype]
+
+        def gaps(l, p, ref_l, ref_p):
+            """(max relative loss gap, max |coefficient gap|)"""
+            return (float(np.max(np.abs(l - ref_l) / np.abs(ref_l))),
+                    max(float((a["coefficients"].double()
+                               - b["coefficients"].double()).abs().max())
+                        for a, b in zip(p, ref_p)))
+
+        coef_scale = max(float(b["coefficients"].abs().max())
+                         for b in base_p)
+        if dtype == torch.float64:
+            bars = (1e-9, 1e-9 * coef_scale)
+        else:
+            # float32: the JAX test's bars (rtol 1e-5, atol 1e-6) are
+            # logged; a 1e-6 absolute bar is an ulp at this model's
+            # max|c|, so the run is held as phase 7 holds its float32
+            # runs: within FLOOR_FACTOR x the gap between the one-slot
+            # run in float32 and in float64 (what float32 rounding alone
+            # moves the trajectory by)
+            floor = gaps(base_l, base_p, *base[torch.float64][:2])
+            bars = (FLOOR_FACTOR * floor[0], FLOOR_FACTOR * floor[1])
+        for name in meshes:
+            l, p, ms = runs[name]
+            loss_rel, coef_abs = gaps(l, p, base_l, base_p)
+            row = {"loss_rel": loss_rel, "coef_abs": coef_abs,
+                   "coef_scale": coef_scale, "bars": bars,
+                   "ms_per_step": ms, "one_slot_ms_per_step": base_ms}
+            out[f"{name}_{str(dtype)[6:]}"] = row
+            log("mesh_train", mesh=name, dtype=str(dtype)[6:], steps=steps,
+                loss=f"{l[-1]:.8f}", loss_rel=f"{loss_rel:.3e}",
+                loss_bar=f"{bars[0]:.3e}", coef_abs=f"{coef_abs:.3e}",
+                coef_bar=f"{bars[1]:.3e}", coef_scale=f"{coef_scale:.4g}",
+                within_jax_test_bars=loss_rel <= 1e-5 and coef_abs <= 1e-6,
+                ms_per_step=f"{ms:.3f}", one_slot_ms_per_step=f"{base_ms:.3f}",
+                phase7_xla_ms_per_step=f"{step_ms['xla']:.3f}",
+                card=f"'{smi}'")
+            _hold(f"train {name} {dtype} losses", loss_rel, bars[0])
+            _hold(f"train {name} {dtype} coefficients", coef_abs, bars[1])
+    kan = FixedKAN.load_model(model_file, device=device)
+    try:
+        kan.train(xs, ys, mesh=meshes["dp8"], backend="fused_dw",
+                  **MESH_TRAIN)
+    except ValueError as e:
+        if "shard_map" not in str(e):
+            raise
+    else:
+        raise AssertionError("train(mesh=, backend='fused_dw') ran")
+    # busy share of the (dp 2, tp 4) float32 step: 8 steps under the
+    # profiler, device time over host time
+    kan = FixedKAN.load_model(model_file, device=device)
+    rows = 8 * MESH_TRAIN["batch_size"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kan.train(xs[:rows], ys[:rows], mesh=meshes["dp2_tp4"],
+                  **MESH_TRAIN)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = device_events(prof)
+    busy_us = sum(u for _, u, _ in events)
+    out["dp2_tp4_busy_share"] = busy_us / wall_us
+    out["dp2_tp4_launches_per_step"] = sum(c for _, _, c in events) / 8
+    log("mesh_train", check="fused_dw_with_mesh_raises", raised=True,
+        dp2_tp4_busy_share=f"{busy_us / wall_us:.4f}",
+        dp2_tp4_device_ms_per_step=f"{busy_us / 8 / 1e3:.4f}",
+        dp2_tp4_launches_per_step=out["dp2_tp4_launches_per_step"],
+        card=f"'{smi}'")
+    return out
+
+
+def run_mesh_search(device, x, y, smi: str) -> dict:
+    """18d: the sharded samplers at the flagship layer 0's QUBO size and
+    ``FixedKAN.optimize(mesh=)`` of the flagship on the 10k rows."""
+    out = {}
+    mesh8 = make_mesh(SLOTS, devices=[device] * SLOTS)
+    model = block_qubo(QUBO_FUNCS, DP1, SEED + 18)
+    states = ((np.arange(2**DP1)[:, None] >> np.arange(DP1)) & 1
+              ).astype(float)
+    ground = sum(float(np.min(QuboModel(
+        model.h[b * DP1:(b + 1) * DP1],
+        model.J[b * DP1:(b + 1) * DP1, b * DP1:(b + 1) * DP1], 0.0
+    ).energy(states))) for b in range(QUBO_FUNCS))
+    # the tempering samplers' median-anchored cold end does not resolve
+    # this instance's finest gaps: they take SA's range, as their
+    # docstring says a caller needing the min-scale end does
+    sa_range = anneal_sa.default_beta_range(model)
+    samplers = {
+        "simulated_annealing_sharded": (
+            lambda: simulated_annealing_sharded(
+                model, mesh8, num_reads=SHARDED_READS,
+                num_sweeps=SHARDED_SWEEPS, seed=SEED), SHARDED_READS),
+        "parallel_tempering_sharded": (
+            lambda: parallel_tempering_sharded(
+                model, mesh8, num_chains=PT_CHAINS,
+                num_replicas=PT_REPLICAS, num_sweeps=SHARDED_SWEEPS,
+                beta_range=sa_range, seed=SEED), PT_CHAINS * PT_REPLICAS),
+        "parallel_tempering_mesh_ladder": (
+            lambda: parallel_tempering_mesh_ladder(
+                model, mesh8, num_chains=PT_CHAINS,
+                num_replicas=PT_REPLICAS, num_sweeps=SHARDED_SWEEPS,
+                beta_range=sa_range, seed=SEED),
+            PT_CHAINS * PT_REPLICAS),
+    }
+    for name, (run, rows) in samplers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples, energies = run()
+        seconds = time.perf_counter() - t0
+        e64 = model.energy(samples)
+        hits = int(np.sum(np.abs(e64 - ground) <= GROUND_BAR
+                          * max(1.0, abs(ground))))
+        gap = float(np.min(e64)) - ground
+        out[name] = {"rows": samples.shape[0], "gap": gap, "hits": hits,
+                     "seconds": seconds}
+        log("mesh_search", sampler=name, variables=model.num_variables,
+            slots=SLOTS, sweeps=f"{SHARDED_SWEEPS} (cut from 1000)",
+            rows=samples.shape[0], rows_expected=rows,
+            ground=f"{ground:.12f}", gap=f"{gap:.3e}", hits=hits,
+            seconds=f"{seconds:.3f}", card=f"'{smi}'")
+        if samples.shape[0] != rows or hits == 0:
+            raise AssertionError(f"{name}: {samples.shape}, gap {gap}")
+    # launches a sweep: the profiler's cost grows with its events, so
+    # one sweep against none
+    short = [profiled_launches(lambda k=k: simulated_annealing_sharded(
+        model, mesh8, num_reads=SHARDED_READS, num_sweeps=k, seed=SEED))
+        for k in (0, 1)]
+    per_sweep = short[1][0] - short[0][0]
+    out["sa_sharded_launches_per_sweep"] = per_sweep
+    out["sa_sharded_device_ms_per_sweep"] = short[1][1] - short[0][1]
+
+    # optimize(mesh=) of the flagship, float32 as phase 15b runs it
+    cfg = FixedKANConfig.preset("recommended", SHAPE, MAX_DEGREE,
+                                complexity_weight=0.001)
+    kans = {}
+    for name, kw in (("one_slot_exact", {"solver": "exact"}),
+                     ("mesh_exact", {"solver": "exact", "mesh": mesh8}),
+                     ("mesh_anneal", {"mesh": mesh8,
+                                      "num_sweeps": SEARCH_SWEEPS})):
+        kans[name] = FixedKAN(cfg, device=device)
+        t0 = time.perf_counter()
+        kans[name].optimize(x, y, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        out[f"{name}_seconds"] = time.perf_counter() - t0
+    base = kans["one_slot_exact"]
+    fwd_base = base(x)
+    for name in ("mesh_exact", "mesh_anneal"):
+        kan = kans[name]
+        degrees_equal = all(torch.equal(a["degrees"], b["degrees"])
+                            for a, b in zip(kan.params, base.params))
+        coef_ok = all(torch.allclose(a["coefficients"], b["coefficients"],
+                                     rtol=5e-2, atol=2e-2)
+                      for a, b in zip(kan.params, base.params))
+        coef_gap = max(float((a["coefficients"] - b["coefficients"])
+                             .abs().max()) for a, b in zip(kan.params,
+                                                           base.params))
+        fwd_gap = float((kan(x) - fwd_base).abs().max())
+        layers = [{"route": s["route"], "slots": s["slots"],
+                   "sharded_sweep": s["route"] == "gram" and s["slots"] > 1,
+                   "seconds": s["solve_seconds"] + s["select_seconds"]}
+                  for s in kan.last_search_stats]
+        out[name] = {"degrees_equal": degrees_equal, "coef_gap": coef_gap,
+                     "fwd_gap": fwd_gap, "layers": layers}
+        log("mesh_search", search=name, rows=x.shape[0],
+            degrees_equal=degrees_equal, coef_gap=f"{coef_gap:.3e}",
+            coef_bars="rtol 5e-2 atol 2e-2", fwd_gap=f"{fwd_gap:.3e}",
+            fwd_bar=5e-3,
+            routes=[l["route"] for l in layers],
+            sharded_sweeps=[l["sharded_sweep"] for l in layers],
+            s_a_layer=[f"{l['seconds']:.3f}" for l in layers],
+            sweeps=SEARCH_SWEEPS if "anneal" in name else "-",
+            sa_launches_per_sweep_32x6=per_sweep, card=f"'{smi}'")
+        if not (degrees_equal and coef_ok and fwd_gap <= 5e-3):
+            raise AssertionError(f"{name}: {out[name]}")
+    return out
+
+
+def run_pp(device, model, x, labels, smi: str) -> dict:
+    """18e: the flagship as a lead layer and 3 one-layer stages, on 3
+    slots and on (dp 2, pp 3), float64, against one slot."""
+    out = {}
+    p64 = [{k: v.double() if v.is_floating_point() else v
+            for k, v in lp.items()} for lp in model.params]
+    y = torch.nn.functional.one_hot(labels.long(), T).double()
+    for name, mesh in (("pp3", Mesh([device] * 3, ("pp",))),
+                       ("dp2_pp3", Mesh([device] * 6, ("dp", "pp"),
+                                        (2, 3)))):
+        rows = PP_MICRO * PP_MICRO_ROWS * mesh.shape.get("dp", 1)
+        xb, yb = x[:rows].double(), y[:rows]
+        lead, stacked = place_pipeline_params(p64, mesh)
+        fwd = _rel(kan_apply_pp((lead, stacked), xb, MAX_DEGREE, mesh,
+                                microbatches=PP_MICRO),
+                   kan_apply(p64, xb, MAX_DEGREE))
+        step = make_pp_train_step(mesh, MAX_DEGREE,
+                                  microbatches=PP_MICRO)
+        lead_t = {k: v for k, v in lead.items() if k != "degrees"}
+        st_t = {k: v for k, v in stacked.items() if k != "degrees"}
+        degrees = [lp["degrees"] for lp in p64]
+
+        def as_layers(lead_t, st_t):
+            """The pipeline's parameters as the layer list, unpadded."""
+            full = gather_shards(st_t)
+            outs = [len(lp["horizontal_weights"]) for lp in p64[1:]]
+            return [lead_t] + [{k: full[k][s, 0][:o] for k in full}
+                               for s, o in enumerate(outs)]
+
+        loss_gap, param_gap, pp_s = 0.0, 0.0, 0.0
+        for _ in range(2):
+            start = as_layers(lead_t, st_t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (lead_t, st_t), loss = step(lead_t, lead["degrees"], st_t,
+                                        stacked["degrees"], xb, yb)
+            torch.cuda.synchronize()
+            pp_s += time.perf_counter() - t0
+            leaves = [{k: v.detach().requires_grad_() for k, v in lp.items()}
+                      for lp in start]
+            full = [dict(lv, degrees=d) for lv, d in zip(leaves, degrees)]
+            l_ref = torch.mean((kan_apply(full, xb, MAX_DEGREE) - yb) ** 2)
+            grads = iter(torch.autograd.grad(
+                l_ref, [v for lv in leaves for v in lv.values()]))
+            ref = [{k: (v - 1e-3 * next(grads)).detach()
+                    for k, v in lv.items()} for lv in leaves]
+            l_ref = float(l_ref.detach())
+            loss_gap = max(loss_gap, abs(float(loss) - l_ref)
+                           / max(1.0, abs(l_ref)))
+            param_gap = max(param_gap,
+                            _tree_gap(as_layers(lead_t, st_t), ref))
+        out[name] = {"rows": rows, "fwd_rel_err": fwd, "loss_gap": loss_gap,
+                     "param_gap": param_gap, "ms_per_step": pp_s * 1e3 / 2}
+        log("pp", mesh=name, stages=3, microbatches=PP_MICRO,
+            microbatch_rows=PP_MICRO_ROWS, rows=rows,
+            fwd_rel_err=f"{fwd:.3e}", loss_gap=f"{loss_gap:.3e}",
+            param_gap=f"{param_gap:.3e}",
+            bars="1e-10 max|y| / 1e-12 max(1, |loss|) / 1e-10 max(1, max|p|)",
+            ms_per_step=f"{pp_s * 1e3 / 2:.3f}", card=f"'{smi}'")
+        _hold(f"pp {name} forward", fwd, 1e-10)
+        _hold(f"pp {name} loss", loss_gap, 1e-12)
+        _hold(f"pp {name} params", param_gap, 1e-10)
+    return out
+
+
+def run_diagnostics(device, model_file, model, x, tp_params, paths: dict,
+                    smi: str) -> dict:
+    """18f: analyze_network, the checkpoint helpers, the sparsity metrics,
+    the native statevector oracle against the card's ``sim``, and the
+    dry run of every multi-device path."""
+    out = {}
+    m64 = FixedKAN(model.config, device=device)
+    m64.params = [{k: v.double() if v.is_floating_point() else v
+                   for k, v in lp.items()} for lp in model.params]
+    xb = x[:TP_ROWS].double()
+    analysis = m64.analyze_network(xb)
+    last = analysis[f"layer_{len(SHAPE) - 2}"]["combined_output"]
+    out["analyze_rel_err_f64"] = _rel(last, kan_apply(m64.params, xb,
+                                                      MAX_DEGREE))
+    info = extract_degrees_from_checkpoint(model_file, device=device)
+    degrees_equal = all(np.array_equal(l["degrees"],
+                                       lp["degrees"].cpu().numpy())
+                        for l, lp in zip(info["layers"], model.params))
+    stats = compute_model_stats(info)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        pq_path = str(tmp / "market.parquet")
+        generate_market_parquet(pq_path, n_rows=SPARSITY_ROWS,
+                                n_features=79, seed=SEED)
+        t0 = time.perf_counter()
+        metrics = compute_sparsity(pq_path)
+        sparsity_s = time.perf_counter() - t0
+        cols = market_columns(n_rows=SPARSITY_ROWS, n_features=79,
+                              seed=SEED)
+        feats = [k for k in cols if k.startswith("feature_")]
+        want = sum(int(np.isnan(cols[k]).sum()) for k in feats) / (
+            len(feats) * SPARSITY_ROWS)
+        ckpt = tmp / "tp_params.pt"
+        save_pytree(str(ckpt), tp_params)
+        back = load_pytree(str(ckpt), target=tp_params)
+    bit_equal = all(
+        torch.equal(a, b) and a.device == b.device
+        for a, b in zip(tree_tensors(back), tree_tensors(tp_params)))
+    out.update(extract_degrees_equal=degrees_equal,
+               degree_histogram=stats["degree_histogram"],
+               sparsity_overall=metrics.overall_sparsity,
+               sparsity_expected=want, sparsity_seconds=sparsity_s,
+               pytree_bit_equal=bit_equal)
+    log("diagnostics", analyze_rel_err_f64=f"{out['analyze_rel_err_f64']:.3e}",
+        bar=1e-10, extract_degrees_equal=degrees_equal,
+        degree_histogram=stats["degree_histogram"],
+        sparsity=f"{metrics.overall_sparsity:.6f}",
+        sparsity_expected=f"{want:.6f}", sparsity_rows=SPARSITY_ROWS,
+        sparsity_s=f"{sparsity_s:.3f}", pytree_bit_equal=bit_equal,
+        card=f"'{smi}'")
+    _hold("analyze_network", out["analyze_rel_err_f64"], 1e-10)
+    if not (degrees_equal and bit_equal
+            and metrics.overall_sparsity == want
+            and len(metrics.column_sparsity) == 79):
+        raise AssertionError(f"diagnostics: {out}")
+
+    # the native statevector (host C++) against the card's simulator
+    a = np.random.default_rng(SEED + 18).uniform(-1, 1, (SV_FABLE_N,
+                                                         SV_FABLE_N))
+    circ, _ = fable(a)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi = simulate(circ, dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    sim_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    paths["native_oracle_sim"] = counts
+    t0 = time.perf_counter()
+    ref = statevector_native(circ)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    err = float(np.max(np.abs(psi.cpu().numpy() - ref)))
+    launched = {k: v for k, v in counts.items() if v}
+    out.update(native_sv_qubits=circ.num_qubits, native_sv_err=err,
+               native_sv_kernels=launched, sim_ms=sim_ms,
+               native_ms=native_ms)
+    log("diagnostics", check="statevector_native_vs_sim",
+        qubits=circ.num_qubits, gates=len(circ.gates), err=f"{err:.3e}",
+        bar=1e-12, kernels=launched, sim_ms=f"{sim_ms:.3f}",
+        native_host_ms=f"{native_ms:.3f}", card=f"'{smi}'")
+    _hold("statevector_native vs sim", err, 1e-12)
+    if not launched:
+        raise AssertionError("the FABLE run launched no statevector kernel")
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(SLOTS, devices=[device] * SLOTS)
+    out["dryrun"] = {**dry, "seconds": time.perf_counter() - t0}
+    return out
+
+
+def run_multi_device(device, model_file, paths: dict, step_ms: dict,
+                     smi: str) -> dict:
+    """Phase 18 on 8 slots of the card and 15c's trained flagship."""
+    x_np, labels_np, meta = load_digits_784(train=True,
+                                            augment_to=SEARCH_ROWS,
+                                            seed=SEED)
+    x = torch.as_tensor(x_np, dtype=torch.float32, device=device)
+    labels = torch.as_tensor(labels_np, device=device)
+    model = FixedKAN.load_model(model_file, device=device)
+    out = {"data": meta["source"], "rows": int(x.shape[0])}
+    t0 = time.perf_counter()
+    out["tp"], tp_params = run_tp(device, model, x, labels, smi)
+    out["mesh_train"] = run_mesh_train(device, model_file, x, labels,
+                                       step_ms, smi)
+    y = torch.as_tensor(to_one_hot(labels_np, T), dtype=torch.float32,
+                        device=device)
+    out["mesh_search"] = run_mesh_search(device, x, y, smi)
+    out["pp"] = run_pp(device, model, x, labels, smi)
+    out["diagnostics"] = run_diagnostics(device, model_file, model, x,
+                                         tp_params, paths, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log("multi_device", seconds=f"{out['seconds']:.2f}", card=f"'{smi}'")
+    return out
+
+
 def main() -> int:
     device = resolve_device("cuda")
     smi = subprocess.run(
@@ -4060,8 +4662,9 @@ def main() -> int:
         model_file, flagship = run_flagship(device, Path(tmp), paths, smi)
         int8 = run_int8_serving(device, model_file,
                                 flagship["test_accuracy"], paths, smi)
-    market = {"search": run_market_search(device, smi),
-              "harness": run_harness(device, paths, smi)}
+        market = {"search": run_market_search(device, smi),
+                  "harness": run_harness(device, paths, smi)}
+        multi = run_multi_device(device, model_file, paths, step_ms, smi)
 
     sources = {
         "fused_dw_fwd": ("csrc/fused_dw_fwd.cu", "ops/fused_layer.py:447"),
@@ -4248,6 +4851,7 @@ def main() -> int:
         "card": smi}}), flush=True)
     print(json.dumps({"int8_serving": {**int8, "card": smi}}), flush=True)
     print(json.dumps({"market": {**market, "card": smi}}), flush=True)
+    print(json.dumps({"multi_device": {**multi, "card": smi}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

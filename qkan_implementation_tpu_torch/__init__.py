@@ -19,34 +19,42 @@ counterpart there.  It imports torch and numpy only.
                   the mesh-sharded engine (``sim.sharded``) with its fused
                   exchange kernel (``sim.rdma``, ``csrc/exchange.cu``).
 - ``parallel`` -- a mesh of device slots and the collectives over them
-                  (single-controller, as the JAX package's ``shard_map``).
-- ``anneal``   -- the degree-selection QUBO and the symbolic QUBO
-                  builder (numpy), and the batched annealers on torch.
+                  (single-controller, as the JAX package's ``shard_map``),
+                  tensor- and pipeline-parallel FixedKAN (``tp``, ``pp``).
+- ``anneal``   -- the degree-selection QUBO and symbolic QUBO
+                  expressions (numpy), and the batched annealers on
+                  torch, on one device or split over a mesh axis.
 - ``models``   -- FixedKAN config, structure search (``optimize``: the
                   Gram / QR / SVD degree sweeps and the annealer), forward
                   (``'xla'`` fold with its int8 serving recipes and the
                   ``'fused'`` / ``'fused_dw'`` kernel backends), gradient
-                  training and npz checkpoints in the JAX package's
-                  format; the MLP baseline; the QSVT neuron.
+                  training (``mesh=`` for dp and tp), network analysis
+                  and npz checkpoints in the JAX package's format; the MLP
+                  baseline; the QSVT neuron.
 - ``serving``  -- bucketed batched predictor and a stdlib HTTP server.
 - ``data``, ``experiments``, ``analysis`` -- the market columns and
                   their pipeline, the digits corpus and its loaders; the
                   config-driven market harness (``run_experiment``: the
                   degree optimizer, the MLP baseline and FixedKAN) and the
                   flagship digits experiment (``run_mnist_experiment``);
-                  the digits sampling diagnostics.
+                  saved-model statistics, the digits sampling diagnostics
+                  and dataset sparsity metrics.
 - ``optim``    -- ``DegreeOptimizer``: the per-edge degree search of one
                   QKAN layer (Gram statistics on the card, the QUBO, the
                   annealer) and its prediction.
-- ``native_bindings`` -- the C++ annealer (``native/``) through ctypes.
+- ``native_bindings`` -- the C++ annealer and circuit helpers
+                  (``native/``) through ctypes.
 - ``utils``    -- device selection, parameter conversion to and from
-                  numpy, metrics, and JSONL run records.
+                  numpy, metrics, JSONL run records, checkpoints and
+                  profiling.
+- ``dryrun``   -- ``entry()`` and ``dryrun_multichip(n)``, the
+                  counterparts of the repository root's
+                  ``__graft_entry__.py``.
 
-Not ported yet (ROADMAP.md, Queue 1, in its order): ``analyze_network``
-and ``analysis/{model_analysis,sparsity}``; ``utils/{checkpoint,
-profiling}``; the native circuit helpers; the rest of the multi-device
-slice (tensor- and pipeline-parallel FixedKAN, the mesh-sharded
-annealers).
+Every public name of the JAX package has its counterpart here, apart from
+the TPU tile constants (``TILE_B``, ``TILE``, ``LANES``, ``SUBLANES``,
+``BLOCK_ROWS``, ``CHUNK_ROWS``, ``INTERPRET_MAX_BLOCK``) and the two XLA
+settings of ``utils.platform`` (its docstring says why).
 """
 
 __version__ = "0.1.0"

@@ -2,8 +2,8 @@
 
 Counterpart of ``qkan_implementation_tpu.anneal``, with its export list:
 the QUBO builders are numpy copies, the annealers run on the card (or on
-the CPU when asked).  The mesh-sharded samplers raise
-``NotImplementedError`` until the multi-device slice is ported.
+the CPU when asked), and the mesh samplers on the slots of a
+``parallel.Mesh`` axis.
 """
 
 from qkan_implementation_tpu_torch.anneal.qubo import (

@@ -20,8 +20,14 @@ fewer launches a step.
 
 Layouts: the dense kernels keep the state as [n, R] (one contiguous row a
 variable), the blocked kernel as [bs, R, nb] (one contiguous [R, nb] slab
-a within-block variable).  The mesh-sharded samplers are not ported yet
-(ROADMAP.md, Queue 1: the rest of the multi-device slice); they raise.
+a within-block variable).
+
+The mesh samplers (``simulated_annealing_sharded``,
+``parallel_tempering_sharded``, ``parallel_tempering_mesh_ladder``) split
+the chains, or one ladder, over the slots of a ``parallel.Mesh`` axis,
+each slot with its own generator seeded from ``(seed, slot)``.  One
+controller runs the slots one after another, so slots on one card cost
+about n_slots times the launches of one slot.
 """
 
 from __future__ import annotations
@@ -30,13 +36,8 @@ import numpy as np
 import torch
 
 from qkan_implementation_tpu_torch.anneal.qubo import QuboModel
+from qkan_implementation_tpu_torch.parallel.collectives import ppermute
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
-
-_SHARDED = (
-    "needs the multi-device slice (ROADMAP.md, Queue 1: the rest of the "
-    "multi-device slice)"
-)
-
 
 def default_beta_range(model: QuboModel) -> tuple[float, float]:
     """Heuristic (beta_hot, beta_cold) from the coupling magnitudes.
@@ -502,20 +503,252 @@ def parallel_tempering(
     return _to_host(model, samples[:, :n_orig], energies)
 
 
-def parallel_tempering_sharded(model: QuboModel, mesh, *args, **kwargs):
-    """Mesh-sharded parallel tempering: not ported yet."""
-    raise NotImplementedError(f"parallel_tempering_sharded {_SHARDED}")
+def _slot_generator(seed: int, slot: int, device) -> torch.Generator:
+    """Slot ``slot``'s own stream, seeded from ``(seed, slot)``."""
+    state = np.random.SeedSequence([int(seed) & (2**63 - 1), slot])
+    return _generator(int(state.generate_state(1, np.uint64)[0]), device)
 
 
-def parallel_tempering_mesh_ladder(model: QuboModel, mesh, *args, **kwargs):
-    """Parallel tempering with the ladder across the mesh: not ported
-    yet."""
-    raise NotImplementedError(f"parallel_tempering_mesh_ladder {_SHARDED}")
+def _axis_slots(mesh, axis_name: str) -> tuple:
+    """The slots the chains split over: ``axis_name`` alone, at index 0
+    of every other axis (the JAX samplers shard over the named axis and
+    duplicate the work along the others)."""
+    if axis_name not in mesh.axis_names:
+        raise ValueError(
+            f"axis {axis_name!r} not in mesh axes {mesh.axis_names}"
+        )
+    return mesh.axis_devices(axis_name)
 
 
-def simulated_annealing_sharded(model: QuboModel, mesh, *args, **kwargs):
-    """Chain-parallel SA over a mesh: not ported yet."""
-    raise NotImplementedError(f"simulated_annealing_sharded {_SHARDED}")
+def _gather_slots(model, results) -> tuple:
+    """Per-slot (samples, energies) in slot order -> numpy, offset
+    included."""
+    return (np.concatenate([s.cpu().numpy() for s, _ in results]),
+            np.concatenate([e.cpu().numpy().astype(np.float64)
+                            for _, e in results]) + model.offset)
+
+
+def parallel_tempering_sharded(
+    model: QuboModel,
+    mesh,
+    axis_name: str = "d",
+    num_chains: int = 64,
+    num_replicas: int = 16,
+    num_sweeps: int = 1000,
+    beta_range: tuple[float, float] | None = None,
+    seed: int = 0,
+    dtype=torch.float32,
+    sweep_block: int | None = None,
+):
+    """Mesh-sharded parallel tempering: chains split over the slots of
+    ``axis_name``, each slot running full temperature ladders on its own
+    generator (replica exchange never crosses slots) -- the tempering
+    analog of ``simulated_annealing_sharded``.
+
+    Returns (samples [C'*T, n], energies) as numpy with
+    C' = ceil(C / n_slots) * n_slots, slot order.
+    """
+    slots = _axis_slots(mesh, axis_name)
+    chains_local = -(-num_chains // len(slots))
+    if beta_range is None:
+        beta_range = default_tempering_beta_range(model)
+    results = []
+    for slot, dev in enumerate(slots):
+        # same delayed-update schedule as the single-slot path
+        h, J, n_orig, block = _prepare_delayed(model, dtype, sweep_block,
+                                               dev)
+        betas = torch.tensor(
+            np.geomspace(beta_range[0], beta_range[1], num_replicas),
+            dtype=dtype, device=dev,
+        )
+        s, e = _tempering_kernel_delayed(
+            h, J, betas, _slot_generator(seed, slot, dev), chains_local,
+            num_replicas, num_sweeps, block,
+        )
+        results.append((s[:, :n_orig], e))
+    return _gather_slots(model, results)
+
+
+def _boundary_swaps(s3, f3, E2, nbr, lo: bool, logp, u, active):
+    """Apply one side of a boundary exchange in place: where the shared
+    Metropolis test passes, the edge replica (the coldest local one if
+    ``lo``, else the hottest) takes the neighbour's (s, f, E) ``nbr``."""
+    if not active:
+        return
+    edge = -1 if lo else 0
+    swap = torch.log(u) < logp  # [C]
+    s3[:, :, edge] = torch.where(swap[None, :], nbr[0], s3[:, :, edge])
+    f3[:, :, edge] = torch.where(swap[None, :], nbr[1], f3[:, :, edge])
+    E2[:, edge] = torch.where(swap, nbr[2], E2[:, edge])
+
+
+def _tempering_mesh_kernel(h, J, betas_local, gens, shared_gen, slots,
+                           num_chains: int, num_sweeps: int, block: int):
+    """Parallel tempering with the temperature ladder SPLIT over the
+    slots: global ladder T = n_slots * t_local, slot d sweeping its
+    ``t_local`` replicas (``betas_local[d]``) on its own generator.
+
+    Within-slot adjacent pairs exchange as in ``_tempering`` (by GLOBAL
+    pair parity); the BOUNDARY pair between slot d's coldest replica and
+    slot d+1's hottest: both neighbours receive the other's edge replica
+    (s, f, E) through ``ppermute``, read the SAME uniform (one draw a
+    sweep and parity on ``shared_gen``, column d for boundary d), and each
+    applies the identical Metropolis decision to its own side.  Returns
+    per-slot (samples [C*t_local, n], energies without the offset)."""
+    n_dev = len(slots)
+    n = h[0].shape[0]
+    C, Tl = num_chains, betas_local[0].shape[0]
+    R = C * Tl
+    structs = [_delayed_structs(J_d, block) for J_d in J]
+    st = []
+    for d in range(n_dev):
+        s = _bernoulli_half(gens[d], (n, R), h[d])
+        st.append([s, h[d][:, None] + J[d] @ s, _energies(s.T, h[d], J[d])])
+    beta_r = [b.repeat(C) for b in betas_local]
+    dB = [b[:-1] - b[1:] for b in betas_local]
+    g_pair = [(d * Tl + torch.arange(Tl - 1, device=slots[d])) % 2
+              for d in range(n_dev)]
+    up = [(d + 1, d) for d in range(n_dev - 1)]  # neighbour above -> me
+    dn = [(d, d + 1) for d in range(n_dev - 1)]  # me -> neighbour above
+    nb_first = ppermute([b[:1] for b in betas_local], up)
+    pb_last = ppermute([b[-1:] for b in betas_local], dn)
+    for _ in range(num_sweeps):
+        for d in range(n_dev):
+            s, f, E = st[d]
+            thr = _thresholds(_uniform(gens[d], (n, R), h[d]),
+                              beta_r[d][None, :])
+            _delayed_sweep(s, f, thr, *structs[d], block, E)
+        for parity in (0, 1):
+            views = []
+            for d in range(n_dev):
+                s, f, E = st[d]
+                s3, f3, E2 = s.view(n, C, Tl), f.view(n, C, Tl), E.view(C, Tl)
+                if Tl > 1:
+                    logp = dB[d][None, :] * (E2[:, :-1] - E2[:, 1:])
+                    u2 = _uniform(gens[d], (C, Tl - 1), h[d])
+                    do_swap = (torch.log(u2) < logp) & (
+                        g_pair[d] == parity)[None, :]
+                    s3, f3, E2 = _apply_replica_swaps(s3, f3, E2, do_swap)
+                views.append((s3, f3, E2))
+            if n_dev > 1:
+                u_all = _uniform(shared_gen, (C, n_dev), h[0])
+                # each slot's edge replicas before any boundary swap (a
+                # copy: ppermute between slots of one card moves a view)
+                first = [[v[k][..., 0].clone() for v in views]
+                         for k in range(3)]
+                last = [[v[k][..., -1].clone() for v in views]
+                        for k in range(3)]
+                nf = [ppermute(first[k], up) for k in range(3)]
+                pl = [ppermute(last[k], dn) for k in range(3)]
+                for d, (s3, f3, E2) in enumerate(views):
+                    dev = slots[d]
+                    # lower side of boundary d: my last vs the first above
+                    lo = (d * Tl + Tl - 1) % 2 == parity and d < n_dev - 1
+                    _boundary_swaps(
+                        s3, f3, E2, [nf[k][d] for k in range(3)], True,
+                        (betas_local[d][-1] - nb_first[d][0])
+                        * (E2[:, -1] - nf[2][d]),
+                        u_all[:, min(d, n_dev - 2)].to(dev), lo,
+                    )
+                    # upper side of boundary d-1: the last below vs my first
+                    hi = ((d - 1) * Tl + Tl - 1) % 2 == parity and d > 0
+                    _boundary_swaps(
+                        s3, f3, E2, [pl[k][d] for k in range(3)], False,
+                        (pb_last[d][0] - betas_local[d][0])
+                        * (pl[2][d] - E2[:, 0]),
+                        u_all[:, max(d - 1, 0)].to(dev), hi,
+                    )
+            st = [[s3.reshape(n, R), f3.reshape(n, R), E2.reshape(R)]
+                  for s3, f3, E2 in views]
+    return [(s.T.contiguous(), _energies(s.T.contiguous(), h[d], J[d]))
+            for d, (s, _, _) in enumerate(st)]
+
+
+def parallel_tempering_mesh_ladder(
+    model: QuboModel,
+    mesh,
+    axis_name: str = "d",
+    num_chains: int = 64,
+    num_replicas: int = 16,
+    num_sweeps: int = 1000,
+    beta_range: tuple[float, float] | None = None,
+    seed: int = 0,
+    dtype=torch.float32,
+):
+    """Parallel tempering with the replica ladder spanning the slots.
+
+    Unlike ``parallel_tempering_sharded`` (independent full ladders per
+    slot), ONE global geometric ladder of ``num_replicas`` temperatures is
+    split contiguously over the slots of ``axis_name``; boundary replicas
+    exchange through ``collectives.ppermute`` every sweep
+    (``_tempering_mesh_kernel``).  State is [chains, replicas / slot, n] a
+    slot.  ``num_replicas`` must divide over the slots.  Sweeps run on
+    the delayed-update schedule with the auto block (the same chain as
+    the per-variable sweep).  Returns (samples [n_slots * C * T_local, n],
+    energies) as numpy, offset included.
+    """
+    slots = _axis_slots(mesh, axis_name)
+    n_dev = len(slots)
+    if num_replicas % n_dev != 0:
+        raise ValueError(
+            f"num_replicas {num_replicas} must divide over {n_dev} devices"
+        )
+    if beta_range is None:
+        beta_range = default_tempering_beta_range(model)
+    betas = np.geomspace(beta_range[0], beta_range[1], num_replicas)
+    t_local = num_replicas // n_dev
+    h, J, betas_local = [], [], []
+    for d, dev in enumerate(slots):
+        h_d, J_d, n_orig, block = _prepare_delayed(model, dtype, None, dev)
+        h.append(h_d)
+        J.append(J_d)
+        betas_local.append(torch.tensor(
+            betas[d * t_local:(d + 1) * t_local], dtype=dtype, device=dev))
+    results = _tempering_mesh_kernel(
+        h, J, betas_local,
+        [_slot_generator(seed, d, dev) for d, dev in enumerate(slots)],
+        _slot_generator(seed, n_dev, slots[0]), slots, num_chains,
+        num_sweeps, block,
+    )
+    return _gather_slots(model, [(s[:, :n_orig], e) for s, e in results])
+
+
+def simulated_annealing_sharded(
+    model: QuboModel,
+    mesh,
+    axis_name: str = "d",
+    num_reads: int = 1000,
+    num_sweeps: int = 1000,
+    beta_range: tuple[float, float] | None = None,
+    seed: int = 0,
+    dtype=torch.float32,
+    sweep_block: int | None = None,
+):
+    """Chain-parallel SA: the ``num_reads`` chains split over the slots of
+    ``axis_name`` (SURVEY.md section 2, "chain parallelism for
+    annealing").
+
+    Each slot runs an independent slice of chains on its own generator,
+    seeded from ``(seed, slot)``, on the delayed-update schedule of the
+    single-slot path; nothing crosses slots until the samples are
+    gathered.  Returns (samples [R', n], energies [R']) as numpy with
+    R' = ceil(R / n_slots) * n_slots, slot order.
+    """
+    slots = _axis_slots(mesh, axis_name)
+    reads_local = -(-num_reads // len(slots))
+    if beta_range is None:
+        beta_range = default_beta_range(model)
+    betas = _schedule(beta_range, num_sweeps, dtype)
+    results = []
+    for slot, dev in enumerate(slots):
+        h, J, n_orig, block = _prepare_delayed(model, dtype, sweep_block,
+                                               dev)
+        s, e = _anneal_kernel_delayed(
+            h, J, betas, _slot_generator(seed, slot, dev), reads_local,
+            num_sweeps, block,
+        )
+        results.append((s[:, :n_orig], e))
+    return _gather_slots(model, results)
 
 
 def _greedy_kernel(h, J, s):

@@ -66,10 +66,14 @@ class AdamGroup:
         """Apply one update in place from the group's gradients."""
         grads = list(grads)
         if self.grad_clip:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            # one norm over the group, on its first leaf's device (a group
+            # may hold the shards of one leaf on several slots)
+            dev = grads[0].device
+            norm = torch.sqrt(sum(torch.sum(g * g).to(dev) for g in grads))
             keep = norm < self.grad_clip
             grads = [
-                torch.where(keep, g, (g / norm.to(g.dtype)) * self.grad_clip)
+                torch.where(keep.to(g.device), g,
+                            (g / norm.to(g.device, g.dtype)) * self.grad_clip)
                 for g in grads
             ]
         step = -self._lr()

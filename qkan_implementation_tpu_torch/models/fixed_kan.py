@@ -9,11 +9,13 @@ policy, ``kan_layer_apply`` / ``kan_apply`` on the ``'xla'`` fold and the
 ``'fused'`` / ``'fused_dw'`` kernel backends; ``train`` and
 ``train_horizontal_weights`` (Adam with per-group clipping, fan-in
 learning rates and the cosine schedule of the JAX package's optax chain,
-``models._optim``); and the npz checkpoint format, which stays
-byte-compatible with the JAX package so a model saved by either loads in
-the other.  ``analyze_network`` and ``visualize_analysis`` are not ported
-yet (ROADMAP.md, Queue 1: diagnostics), nor is ``mesh=`` (Queue 1: the
-rest of the multi-device slice).
+``models._optim``), on one device or over the slots of a
+``parallel.Mesh`` (``train(mesh=)``: rows over a batch axis, the
+coefficients' ``in`` axis over a ``tp`` axis; ``optimize(mesh=)``: rows
+over the first axis, per-slot Gram partials, the sharded annealer);
+``analyze_network`` and ``visualize_analysis``; and the npz checkpoint
+format, which stays byte-compatible with the JAX package so a model saved
+by either loads in the other.
 
 Parameters are a list of per-layer dicts, as in the JAX package:
 ``degrees [out]`` (int), ``coefficients [out, in, D+1, T]`` and
@@ -35,6 +37,8 @@ from torch import nn
 
 from qkan_implementation_tpu_torch.anneal import (
     degree_selection_qubo,
+    polish_one_hot_blocks,
+    simulated_annealing_sharded,
     solve_qubo,
 )
 from qkan_implementation_tpu_torch.models._optim import AdamGroup
@@ -47,6 +51,8 @@ from qkan_implementation_tpu_torch.ops.qkan_layer import (
     int8_quantized_matmul,
     int8_residual_matmul,
 )
+from qkan_implementation_tpu_torch.parallel.collectives import psum
+from qkan_implementation_tpu_torch.parallel.mesh import Shards, shard_batch
 from qkan_implementation_tpu_torch.utils.convert import (
     params_from_numpy,
     params_to_numpy,
@@ -427,6 +433,22 @@ def kan_apply(
 _PARAM_KEYS = ("degrees", "coefficients", "horizontal_weights")
 
 
+def _leaf_tensors(v) -> list:
+    """A leaf of a mesh layout (a tensor or a ``Shards``) as tensors."""
+    return list(v.parts) if isinstance(v, Shards) else [v]
+
+
+def _whole(v) -> torch.Tensor:
+    return v.full() if isinstance(v, Shards) else v
+
+
+def _cat_rows(parts: list, device) -> torch.Tensor:
+    """Row shards gathered onto ``device``; one shard passes through."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(device) for p in parts])
+
+
 class FixedKAN(nn.Module):
     """FixedKAN module: params as buffers, forward = kan_apply, ``train``.
 
@@ -504,13 +526,13 @@ class FixedKAN(nn.Module):
             {"route": route, "devices": [str(t.device) for t in tensors]}
         )
 
-    def _evaluate_layer_degrees(self, x_fit: torch.Tensor, y: torch.Tensor):
+    def _evaluate_layer_degrees(self, x_fit, y):
         """Per-cumulative-degree lstsq + MSE scores.
 
         One solve per degree serves every neuron (they share the transform
         and the target; reference KANLayer.optimize_degrees :127-146).
         Returns (scores [D+1] numpy, coeffs list of [in*(d+1), T] in
-        dim-major layout, on x_fit's device).
+        dim-major layout, on x_fit's (first) device).
 
         Routing, as the JAX package's: 'qr' takes the QR sweep (the SVD
         one when rows < columns); 'svd' the SVD sweep; 'normal' the Gram
@@ -518,21 +540,32 @@ class FixedKAN(nn.Module):
         that at float32 its ridge is raised to 1e-4 and a layer with
         dp1*in*2.4e-7 above it goes to the QR sweep (rows >= columns) or
         the SVD one, and NaN scores fall back the same way.
+
+        ``x_fit`` and ``y`` may be lists of row shards, one a mesh slot
+        (``optimize(mesh=)``): the Gram pass then forms each slot's Gram
+        partial on its slot and sums them in slot order, one sum a layer;
+        the QR and SVD routes gather the rows onto the first slot.
         """
         cfg = self.config
-        basis = chebyshev_basis(x_fit, cfg.max_degree, clip=False)
-        b, in_dim = basis.shape[0], basis.shape[1]
+        xs, ys = (x_fit, y) if isinstance(x_fit, list) else ([x_fit], [y])
+        dev = xs[0].device
+
+        def gathered():
+            return (chebyshev_basis(_cat_rows(xs, dev), cfg.max_degree,
+                                    clip=False), _cat_rows(ys, dev))
+
+        b, in_dim = sum(t.shape[0] for t in xs), xs[0].shape[1]
         dp1 = cfg.max_degree + 1
         square_or_tall = b >= dp1 * in_dim
         if cfg.lstsq_method == "qr":
             # underdetermined: keep the reference's min-norm SVD semantics
             if not square_or_tall:
-                return self._svd_fallback(basis, y)
-            return self._qr_sweep(basis, y)
+                return self._svd_fallback(*gathered())
+            return self._qr_sweep(*gathered())
         if cfg.lstsq_method != "normal":
-            return self._svd_fallback(basis, y, method=cfg.lstsq_method)
+            return self._svd_fallback(*gathered(), method=cfg.lstsq_method)
 
-        t_dim = y.shape[1]
+        t_dim = ys[0].shape[1]
         # The design is structurally rank-deficient (T_0 of every input
         # dim is the same all-ones column), so the Cholesky needs a ridge
         # above the working precision's floor: 1e-8 at f64, 1e-4 at f32;
@@ -540,16 +573,28 @@ class FixedKAN(nn.Module):
         # the relative ridge (F = 4704, the flagship layer 0): those layers
         # go straight to the QR sweep (JAX fixed_kan.py:610-640).
         ridge = float(cfg.lstsq_ridge)
-        if basis.dtype == torch.float32:
+        if xs[0].dtype == torch.float32:
             ridge = max(ridge, 1e-4)
             if dp1 * in_dim * 2.4e-7 > ridge:
                 if square_or_tall:
-                    return self._qr_sweep(basis, y)
-                return self._svd_fallback(basis, y)
-        X = _degree_major(basis)
-        _check_fp32_matmul(X)
-        G, bvec, yy = X.T @ X, X.T @ y, torch.sum(y**2)
-        self._log_sweep("gram", X, G)
+                    return self._qr_sweep(*gathered())
+                return self._svd_fallback(*gathered())
+        stats, logged = [], []
+        for xj, yj in zip(xs, ys):
+            X = _degree_major(chebyshev_basis(xj, cfg.max_degree, clip=False))
+            _check_fp32_matmul(X)
+            stats.append((X.T @ X, X.T @ yj, torch.sum(yj**2)))
+            logged += [X, stats[-1][0]]
+        if len(stats) == 1:
+            G, bvec, yy = stats[0]
+        else:
+            f = stats[0][0].shape[0]
+            flat = psum([torch.cat([g.reshape(-1), bv.reshape(-1), s[None]])
+                         for g, bv, s in stats])[0]
+            G = flat[: f * f].reshape(f, f)
+            bvec = flat[f * f: f * f + f * t_dim].reshape(f, t_dim)
+            yy = flat[-1]
+        self._log_sweep("gram", *logged)
         scale = torch.trace(G) / G.shape[0] + 1e-30
         res, coeffs = [], []
         for d in range(dp1):
@@ -566,8 +611,8 @@ class FixedKAN(nn.Module):
             # conditioning defeated the fast path: never hand NaN scores
             # to the QUBO
             if square_or_tall:
-                return self._qr_sweep(basis, y)
-            return self._svd_fallback(basis, y)
+                return self._qr_sweep(*gathered())
+            return self._svd_fallback(*gathered())
         return scores, coeffs
 
     def _qr_sweep(self, basis: torch.Tensor, y: torch.Tensor):
@@ -685,15 +730,20 @@ class FixedKAN(nn.Module):
         (``_evaluate_layer_degrees_quantum``).
 
         ``self.last_search_stats`` gets one dict a layer: the sweep's
-        route(s) with the devices of its tensors, the scores, the degrees,
-        and the host seconds of the sweep and of the degree selection.
-        ``mesh`` (data-parallel structure search) is not ported yet.
+        route(s) with the devices of its tensors, the row slots, the
+        scores, the degrees, and the host seconds of the sweep and of the
+        degree selection.
+
+        ``mesh``: data-parallel structure search.  The rows shard over the
+        mesh's first axis (one piece a slot of it): the Gram pass forms
+        each slot's partial on its slot and sums them in slot order, one
+        sum a layer, and every layer's forward runs slot by slot; the QR
+        and SVD sweeps gather the rows onto the first slot (no distributed
+        TSQR).  A row count that does not divide the axis warns and runs
+        unsharded.  With ``solver='anneal'`` the chains split over the
+        same axis (``anneal.simulated_annealing_sharded``) before the
+        one-hot polish.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "optimize(mesh=...) needs the multi-device slice "
-                "(ROADMAP.md, Queue 1: the rest of the multi-device slice)"
-            )
         if solver not in ("anneal", "exact"):
             raise ValueError(f"Unknown solver {solver!r}")
         cfg = self.config
@@ -708,21 +758,40 @@ class FixedKAN(nn.Module):
                    if y.is_floating_point() else torch.get_default_dtype())
         if not y.is_floating_point():
             y = y.to(torch.promote_types(x.dtype, y.dtype))
+        xs, ys = [x], [y]
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            if x.shape[0] % mesh.shape[axis] == 0:
+                xs = shard_batch(x, mesh, axis)
+                ys = shard_batch(y, mesh, axis)
+            else:
+                # documented degradation, but never a SILENT one (train()
+                # raises for the same condition)
+                warnings.warn(
+                    f"row count {x.shape[0]} not divisible by mesh axis "
+                    f"{axis!r} ({mesh.shape[axis]} devices): structure "
+                    "search runs unsharded"
+                )
 
         params = []
-        current = x
+        current = xs
         dp1 = cfg.max_degree + 1
         self.last_quantum_resources = [] if use_quantum else None
         self.last_search_stats = []
         for layer_idx in range(len(cfg.network_shape) - 1):
             out_dim = cfg.network_shape[layer_idx + 1]
-            x_fit = torch.tanh(current) if cfg.consistent_tanh else current
+            x_fit = [torch.tanh(c) if cfg.consistent_tanh else c
+                     for c in current]
             self._sweep_log = []
             t0 = time.perf_counter()
             if use_quantum:
-                scores, coeffs = self._evaluate_layer_degrees_quantum(x_fit, y)
+                scores, coeffs = self._evaluate_layer_degrees_quantum(
+                    _cat_rows(x_fit, self.device), _cat_rows(ys, self.device)
+                )
+            elif len(x_fit) == 1:
+                scores, coeffs = self._evaluate_layer_degrees(x_fit[0], y)
             else:
-                scores, coeffs = self._evaluate_layer_degrees(x_fit, y)
+                scores, coeffs = self._evaluate_layer_degrees(x_fit, ys)
             t1 = time.perf_counter()
             model = degree_selection_qubo(
                 scores,
@@ -730,7 +799,17 @@ class FixedKAN(nn.Module):
                 complexity_weight=cfg.complexity_weight,
                 objective=cfg.degree_objective,
             )
-            if solver == "anneal":
+            if solver == "anneal" and mesh is not None:
+                # pre-polish energies are recomputed after the one-hot
+                # polish; the sampler's own energies don't enter selection
+                samples, _ = simulated_annealing_sharded(
+                    model, mesh, axis_name=mesh.axis_names[0],
+                    num_reads=num_reads, num_sweeps=num_sweeps,
+                    seed=seed + layer_idx,
+                )
+                samples = polish_one_hot_blocks(model, samples, dp1)
+                sample = samples[int(np.argmin(model.energy(samples)))]
+            elif solver == "anneal":
                 sample, _ = solve_qubo(
                     model,
                     num_reads=num_reads,
@@ -748,7 +827,7 @@ class FixedKAN(nn.Module):
             degrees = np.argmax(sample.reshape(out_dim, dp1), axis=1).astype(
                 np.int32
             )
-            in_dim = current.shape[1]
+            in_dim = current[0].shape[1]
             t_dim = y.shape[1]
             C = torch.zeros((out_dim, in_dim, dp1, t_dim), dtype=c_dtype,
                             device=self.device)
@@ -758,7 +837,7 @@ class FixedKAN(nn.Module):
                 )
                 C[rows, :, : d + 1, :] = coeffs[d].reshape(
                     in_dim, d + 1, t_dim
-                ).to(C.dtype)
+                ).to(C.device, C.dtype)
             layer_params = {
                 "degrees": torch.as_tensor(degrees, device=self.device),
                 "coefficients": C,
@@ -767,12 +846,18 @@ class FixedKAN(nn.Module):
                 ),
             }
             params.append(layer_params)
-            current = kan_layer_apply(layer_params, current, cfg.max_degree)
+            current = [
+                kan_layer_apply({k: v.to(c.device)
+                                 for k, v in layer_params.items()},
+                                c, cfg.max_degree)
+                for c in current
+            ]
             self.last_search_stats.append({
                 "layer": layer_idx,
                 "sweeps": self._sweep_log,
                 "route": "+".join(e["route"] for e in self._sweep_log)
                 or "quantum",
+                "slots": len(x_fit),
                 "scores": [float(v) for v in scores],
                 "degrees": degrees.tolist(),
                 "solve_seconds": t1 - t0,
@@ -845,15 +930,23 @@ class FixedKAN(nn.Module):
           'fused_dw' maps 'auto'/'highest'/'bf16x2_*' to 'high' and a
           bf16 ``compute_dtype`` to 'bf16'.
 
-        ``mesh`` (data and tensor parallelism) is not ported yet.
+        ``mesh`` (a ``parallel.Mesh``) turns on data-parallel training:
+        each minibatch splits over ``mesh_axis`` (default: the mesh's
+        first axis that is not the tensor axis), one piece a slot, with
+        one master copy of each parameter on slot 0; every slot takes its
+        copy with ``Tensor.to`` and autograd sums the gradients over the
+        slots.  The batches are the single-slot run's, in its order, so
+        the updates follow its trajectory up to the order of the sums.
+        ``tensor_axis``: 'auto' uses an axis named 'tp' when the mesh
+        carries one, None opts out (the axis is then left unused), an
+        explicit name requires that axis.  With tensor parallelism on, the
+        coefficients' ``in`` axis and x's features split over it for the
+        layers whose in_dim divides it (``parallel.tp``'s layout rule,
+        reused), each shard's master and its Adam moments on its tp slot.
+        ``'xla'`` only.
         """
         if isinstance(x_data, bool) and y_data is None:
             return nn.Module.train(self, x_data)
-        if mesh is not None:
-            raise NotImplementedError(
-                "train(mesh=...) needs the multi-device slice (ROADMAP.md, "
-                "Queue 1: the rest of the multi-device slice)"
-            )
         if self.params is None:
             raise RuntimeError("Run optimization first.")
         x = torch.as_tensor(x_data, device=self.device)
@@ -932,6 +1025,15 @@ class FixedKAN(nn.Module):
             }
             for lp in self.params
         ]
+        if mesh is not None:
+            params, batch_loss = self._mesh_loss(
+                params, mesh, mesh_axis, tensor_axis, backend, batch_size,
+                x, y_train, loss, compute_dtype, matmul_precision,
+            )
+        else:
+            def batch_loss(params, idx_row):
+                return loss_fn(params, x[idx_row], y_train[idx_row])
+
         decay = epochs * steps if lr_schedule == "cosine" else None
         groups = [AdamGroup(
             [lp["horizontal_weights"] for lp in params], learning_rate,
@@ -947,13 +1049,14 @@ class FixedKAN(nn.Module):
             for lp, fanin in zip(params, fanins):
                 lr = (learning_rate * fanins[-1] / fanin
                       if lr_scale == "fanin" else learning_rate)
+                # a tp-split leaf is one tensor a shard: one moment each
                 groups.append(AdamGroup(
-                    [lp["coefficients"]], lr, grad_clip, decay
+                    _leaf_tensors(lp["coefficients"]), lr, grad_clip, decay
                 ))
         leaves = [p for grp in groups for p in grp.params]
 
         def train_step(idx_row):
-            l = loss_fn(params, x[idx_row], y_train[idx_row])
+            l = batch_loss(params, idx_row)
             grads = torch.autograd.grad(l, leaves)
             k = 0
             for grp in groups:
@@ -963,25 +1066,113 @@ class FixedKAN(nn.Module):
 
         rng = np.random.default_rng(seed)
         losses, diverged = self._run_epochs(
-            train_step, params, rng, epochs, n, steps, batch_size, verbose
+            train_step,
+            [t for lp in params for key in ("coefficients",
+                                            "horizontal_weights")
+             for t in _leaf_tensors(lp[key])],
+            rng, epochs, n, steps, batch_size, verbose,
         )
         self.params = [
-            {k: v.detach() for k, v in lp.items()} for lp in params
+            {k: _whole(v).detach() for k, v in lp.items()} for lp in params
         ]
         self.last_train_diverged = diverged
         self.last_train_losses = list(losses)
         return losses
 
+    def _mesh_loss(self, params, mesh, mesh_axis, tensor_axis, backend,
+                   batch_size, x, y_train, loss, compute_dtype,
+                   matmul_precision):
+        """The parameters laid out over ``mesh`` and the batch loss over
+        its slots, for ``train(mesh=)``: returns (params, batch_loss)
+        with ``batch_loss(params, idx_row)`` the mean loss of the rows
+        ``idx_row``, each slot's share formed on its slot and summed in
+        slot order on slot 0."""
+        from qkan_implementation_tpu_torch.parallel import tp as tp_mod
+
+        if backend in ("fused", "fused_dw"):
+            raise ValueError(
+                "mesh= dp training composes with backend='xla' only: the "
+                "fused kernels take one slot's batch per call, so they "
+                "would need a per-slot step, as shard_map gives the JAX "
+                "package's, to extend"
+            )
+        axes = list(mesh.axis_names)
+        if tensor_axis == "auto":
+            tp_ax = "tp" if "tp" in axes else None
+        else:
+            tp_ax = tensor_axis
+            if tp_ax is not None and tp_ax not in axes:
+                raise ValueError(
+                    f"mesh has axes {axes}, no tensor axis {tp_ax!r}"
+                )
+        if tp_ax is not None and axes == [tp_ax]:
+            raise ValueError(
+                f"a 1-D mesh whose only axis is the tensor axis {tp_ax!r} "
+                "is ambiguous here: train(mesh=) shards the batch over "
+                "the remaining axis, so add a batch axis (Mesh(devices, "
+                "('dp', 'tp'), (1, n))), pass tensor_axis=None for pure "
+                "dp, or use parallel.tp.make_tp_train_step for a pure "
+                "tensor-parallel step"
+            )
+        axis = mesh_axis or next(a for a in axes if a != tp_ax)
+        if axis == tp_ax:
+            raise ValueError(
+                f"mesh_axis {axis!r} is the tensor-parallel axis; pass the "
+                "batch axis (or tensor_axis=None)"
+            )
+        n_dev = mesh.shape[axis]
+        if batch_size % n_dev or x.shape[0] % n_dev:
+            raise ValueError(
+                f"dp training needs batch_size ({batch_size}) and the row "
+                f"count ({x.shape[0]}) divisible by mesh axis {axis!r} "
+                f"({n_dev} devices)"
+            )
+        # parallel/tp.py's layout rule verbatim, so the two routes cannot
+        # desynchronize; without a tensor axis every leaf is replicated
+        flags = (tp_mod._tp_layer_flags(params, mesh.shape[tp_ax],
+                                        x.shape[1])
+                 if tp_ax is not None else [False] * len(params))
+        specs = tp_mod._param_specs(params, flags, tp_ax)
+
+        def place(v, spec):
+            leaf = tp_mod._place(v.detach(), spec, mesh)
+            for t in _leaf_tensors(leaf):
+                t.requires_grad_(v.requires_grad)
+            return leaf
+
+        params = [{k: place(v, sp[k]) for k, v in lp.items()}
+                  for lp, sp in zip(params, specs)]
+        max_degree = self.config.max_degree
+
+        def batch_loss(params, idx_row):
+            preds = tp_mod._forward_rows(
+                params, x[idx_row], max_degree, mesh, axis, tp_ax, flags,
+                compute_dtype, matmul_precision,
+            )
+            dev = preds[0].device
+            total = 0.0
+            for p, yb in zip(preds, torch.chunk(y_train[idx_row], n_dev)):
+                yb = yb.to(p.device)
+                if loss == "cross_entropy":
+                    part = -torch.sum(yb * torch.log_softmax(p, dim=-1))
+                else:
+                    part = torch.sum((p - yb) ** 2)
+                total = total + part.to(dev)
+            denom = idx_row.shape[0] * (1 if loss == "cross_entropy"
+                                        else y_train.shape[1])
+            return total / denom
+
+        return params, batch_loss
+
     def _run_epochs(
-        self, train_step, params, rng, epochs, n, steps, batch_size, verbose
+        self, train_step, leaves, rng, epochs, n, steps, batch_size, verbose
     ):
         """Epoch loop with divergence detection: the step losses come to
         the host once per epoch; a non-finite one restores the last finite
-        epoch's parameters in place.  Returns (losses, diverged)."""
+        epoch's values of ``leaves`` in place.  Returns (losses,
+        diverged)."""
         losses = []
-        keys = ("coefficients", "horizontal_weights")
-        last_good = [{k: lp[k].detach().clone() for k in keys}
-                     for lp in params]
+        last_good = [t.detach().clone() for t in leaves]
         diverged = False
         for epoch in range(epochs):
             perm = rng.permutation(n)[: steps * batch_size]
@@ -998,14 +1189,12 @@ class FixedKAN(nn.Module):
                     epoch, bad,
                 )
                 with torch.no_grad():
-                    for lp, good in zip(params, last_good):
-                        for k in keys:
-                            lp[k].copy_(good[k])
+                    for t, good in zip(leaves, last_good):
+                        t.copy_(good)
                 diverged = True
                 break
-            for lp, good in zip(params, last_good):
-                for k in keys:
-                    good[k].copy_(lp[k].detach())
+            for t, good in zip(leaves, last_good):
+                good.copy_(t.detach())
             losses.append(float(ls.mean()))
             if verbose:
                 print(f"Epoch {epoch+1}/{epochs}, avg Loss: {losses[-1]:.4f}")
@@ -1025,6 +1214,148 @@ class FixedKAN(nn.Module):
             trainable="horizontal",
             **kw,
         )
+
+    # -- analysis ---------------------------------------------------------
+    def analyze_network(self, x_data) -> dict:
+        """Per-layer neuron contributions (FixedKAN.analyze_network:376-435).
+
+        ``analysis['layer_{i}']``: ``neuron_outputs`` [out, B, T] (each
+        neuron's term of the layer), ``degrees`` (ints), the
+        ``combined_output`` [B, T] (their sum, the layer's output) and the
+        ``input_dim``; tensors on this model's device.
+        """
+        if self.params is None:
+            raise RuntimeError("Run optimization first.")
+        cfg = self.config
+        analysis = {}
+        current = torch.as_tensor(x_data, device=self.device)
+        for layer_idx, lp in enumerate(self.params):
+            basis = chebyshev_basis(torch.tanh(current), cfg.max_degree,
+                                    clip=False)
+            mask = (
+                torch.arange(cfg.max_degree + 1, device=self.device)[None, :]
+                <= lp["degrees"][:, None]
+            )
+            weighted = (
+                lp["coefficients"]
+                * mask[:, None, :, None]
+                * lp["horizontal_weights"][:, None, None, None]
+            )
+            dtype = torch.promote_types(basis.dtype, weighted.dtype)
+            neuron_outputs = torch.einsum(
+                "bid,oidt->obt", basis.to(dtype), weighted.to(dtype)
+            )
+            combined = neuron_outputs.sum(dim=0)
+            analysis[f"layer_{layer_idx}"] = {
+                "neuron_outputs": neuron_outputs,
+                "degrees": [int(d) for d in lp["degrees"].tolist()],
+                "combined_output": combined,
+                "input_dim": int(current.shape[1]),
+            }
+            current = combined
+        return analysis
+
+    def visualize_analysis(
+        self, analysis: dict, x_data, y_data=None, save_path: str | None = None
+    ):
+        """Plot the per-layer analysis (FixedKAN.visualize_analysis:437-548).
+
+        2-D inputs get 3-D scatter + contour + degree-histogram panels per
+        layer; other dims get output-scatter + histogram panels.  Headless
+        (Agg); returns the figure, optionally saving it.  Needs matplotlib,
+        imported here: without it this raises ``ImportError``.
+        """
+        try:
+            import matplotlib
+        except ImportError as e:
+            raise ImportError(
+                "visualize_analysis needs matplotlib, which is not "
+                "installed here; analyze_network's numbers need no plot"
+            ) from e
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        def host(a):
+            return (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                    else np.asarray(a))
+
+        def first_col(a):
+            a = host(a).squeeze()
+            return a if a.ndim == 1 else a[:, 0]
+
+        num_layers = len(self.params)
+        x_np = host(x_data)
+        input_dim = x_np.shape[1]
+        bins = range(self.config.max_degree + 2)
+
+        if input_dim == 2:
+            fig = plt.figure(figsize=(20, 8 * num_layers))
+            gs = plt.GridSpec(num_layers, 3)
+            sort_idx = np.lexsort((x_np[:, 1], x_np[:, 0]))
+            x_plot = x_np[sort_idx]
+            for layer_idx in range(num_layers):
+                layer_data = analysis[f"layer_{layer_idx}"]
+                ax1 = fig.add_subplot(gs[layer_idx, 0], projection="3d")
+                neuron_outputs = host(layer_data["neuron_outputs"])
+                for i, degree in enumerate(layer_data["degrees"]):
+                    out = first_col(neuron_outputs[i][sort_idx])
+                    ax1.scatter(
+                        x_plot[:, 0], x_plot[:, 1], out,
+                        alpha=0.3, label=f"Neuron {i} (deg={degree})",
+                    )
+                combined = first_col(
+                    host(layer_data["combined_output"])[sort_idx])
+                ax1.scatter(
+                    x_plot[:, 0], x_plot[:, 1], combined,
+                    c="red", alpha=0.7, label="Layer Output",
+                )
+                if layer_idx == num_layers - 1 and y_data is not None:
+                    y_plot = first_col(host(y_data)[sort_idx])
+                    ax1.scatter(
+                        x_plot[:, 0], x_plot[:, 1], y_plot,
+                        c="black", alpha=0.5, label="Target",
+                    )
+                ax1.set_title(f"Layer {layer_idx+1} Contributions")
+                ax1.legend()
+
+                ax2 = fig.add_subplot(gs[layer_idx, 1])
+                sc = ax2.tricontourf(
+                    x_plot[:, 0], x_plot[:, 1], combined, levels=20,
+                    cmap="viridis",
+                )
+                fig.colorbar(sc, ax=ax2)
+                ax2.set_title(f"Layer {layer_idx+1} Output Contours")
+
+                ax3 = fig.add_subplot(gs[layer_idx, 2])
+                ax3.hist(layer_data["degrees"], bins=bins, alpha=0.7,
+                         rwidth=0.8)
+                ax3.set_title(f"Layer {layer_idx+1} Degree Distribution")
+        else:
+            fig = plt.figure(figsize=(15, 5 * num_layers))
+            gs = plt.GridSpec(num_layers, 2)
+            for layer_idx in range(num_layers):
+                layer_data = analysis[f"layer_{layer_idx}"]
+                ax1 = fig.add_subplot(gs[layer_idx, 0])
+                combined = first_col(layer_data["combined_output"])
+                if input_dim == 1:
+                    ax1.scatter(x_np[:, 0], combined, alpha=0.5)
+                else:
+                    sc = ax1.scatter(
+                        x_np[:, 0], x_np[:, 1], c=combined, cmap="viridis",
+                        alpha=0.5,
+                    )
+                    fig.colorbar(sc, ax=ax1)
+                ax1.set_title(f"Layer {layer_idx+1} Output")
+                ax2 = fig.add_subplot(gs[layer_idx, 1])
+                ax2.hist(layer_data["degrees"], bins=bins, alpha=0.7,
+                         rwidth=0.8)
+                ax2.set_title(f"Layer {layer_idx+1} Degree Distribution")
+
+        fig.tight_layout()
+        if save_path:
+            fig.savefig(save_path)
+        return fig
 
     # -- checkpointing (npz, the JAX package's format) -------------------
     def save_model(self, filepath: str) -> None:

@@ -1,14 +1,19 @@
-"""Mesh construction and named collectives, single-controller.
+"""Mesh construction, named collectives, and tensor- and pipeline-parallel
+FixedKAN, single-controller.
 
 Counterpart of ``qkan_implementation_tpu.parallel``: a ``Mesh`` of slots
-(torch devices, several of which may be one card) and the collective set
-over the list of per-slot tensors of a mesh axis.  Tensor- and
-pipeline-parallel FixedKAN (``tp.py``, ``pp.py``) are not ported yet:
-their functions raise (ROADMAP.md, Queue 1: the rest of the multi-device slice).
+(torch devices, several of which may be one card), the collective set
+over the list of per-slot tensors of a mesh axis, ``Shards`` (a tensor
+split over an axis' slots) with ``gather_shards``, and the tp / pp layers
+and train steps (``tp.py``, ``pp.py``).
 """
+
+from typing import TYPE_CHECKING
 
 from qkan_implementation_tpu_torch.parallel.mesh import (
     Mesh,
+    Shards,
+    gather_shards,
     make_mesh,
     make_mesh_2d,
     device_count,
@@ -24,26 +29,45 @@ from qkan_implementation_tpu_torch.parallel.collectives import (
     pairwise_exchange_a2a,
 )
 
+# tp and pp build on models.fixed_kan, whose package imports the simulator,
+# which imports the collectives above: their names load on first use, so
+# importing any module of the package first keeps working
+if TYPE_CHECKING:
+    from qkan_implementation_tpu_torch.parallel.tp import (
+        kan_apply_tp,
+        make_tp_train_step,
+        shard_params,
+    )
+    from qkan_implementation_tpu_torch.parallel.pp import (
+        kan_apply_pp,
+        make_pp_train_step,
+        place_pipeline_params,
+        stack_pipeline_params,
+    )
 
-def _not_ported(name: str):
-    def stub(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} is not ported to the torch package yet (ROADMAP.md, "
-            "Queue 1: the rest of the multi-device slice: tensor- and "
-            "pipeline-parallel FixedKAN)"
-        )
+_LAZY = {
+    "kan_apply_tp": "tp",
+    "make_tp_train_step": "tp",
+    "shard_params": "tp",
+    "kan_apply_pp": "pp",
+    "make_pp_train_step": "pp",
+    "place_pipeline_params": "pp",
+    "stack_pipeline_params": "pp",
+}
 
-    stub.__name__ = name
-    return stub
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module = importlib.import_module(f"{__name__}.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-kan_apply_tp = _not_ported("kan_apply_tp")
-make_tp_train_step = _not_ported("make_tp_train_step")
-shard_params = _not_ported("shard_params")
-kan_apply_pp = _not_ported("kan_apply_pp")
-make_pp_train_step = _not_ported("make_pp_train_step")
-place_pipeline_params = _not_ported("place_pipeline_params")
-stack_pipeline_params = _not_ported("stack_pipeline_params")
+def __dir__():
+    return sorted(set(globals()) | set(_LAZY))
+
 
 __all__ = [
     "kan_apply_tp",
@@ -54,6 +78,8 @@ __all__ = [
     "place_pipeline_params",
     "stack_pipeline_params",
     "Mesh",
+    "Shards",
+    "gather_shards",
     "make_mesh",
     "make_mesh_2d",
     "device_count",

@@ -9,6 +9,11 @@ as the JAX tests' 8 virtual CPU devices share one CPU, and
 ``devices=["cpu"] * 8`` is the CPU test mesh.  By default a mesh takes
 CUDA cards, one slot each, and raises when there are fewer cards than
 slots: it never falls back to the CPU.
+
+``Shards`` holds one tensor split over the slots of an axis (a tp
+coefficient shard, a pp stage): the per-slot layouts of ``parallel.tp``
+and ``parallel.pp``; ``gather_shards`` turns a tree of them back into
+global tensors.
 """
 
 from __future__ import annotations
@@ -41,17 +46,99 @@ class Mesh:
         the devices a state sharded over that axis alone lives on (the
         JAX package replicates it over the other axes; one controller
         needs one copy)."""
-        if axis_name not in self.shape:
-            raise ValueError(
-                f"axis {axis_name!r} not in mesh axes {self.axis_names}"
-            )
-        stride = 1
+        return tuple(row[0] for row in self.grid(axis_name, None))
+
+    def grid(self, row_axis: str | None, col_axis: str | None) -> list:
+        """``grid[i][j]``: the slot at index i of ``row_axis`` and j of
+        ``col_axis`` and index 0 of every other axis (an axis of None
+        counts as size 1).  The slots a 2-D layout such as (dp, tp) runs
+        on; an axis left out is unused, its slots idle."""
+        strides, stride = {}, 1
         for name in reversed(self.axis_names):
-            if name == axis_name:
-                break
+            strides[name] = stride
             stride *= self.shape[name]
-        return tuple(self.devices[i * stride]
-                     for i in range(self.shape[axis_name]))
+
+        def walk(axis):
+            if axis is None:
+                return [0]
+            if axis not in self.shape:
+                raise ValueError(
+                    f"axis {axis!r} not in mesh axes {self.axis_names}"
+                )
+            return [i * strides[axis] for i in range(self.shape[axis])]
+
+        return [[self.devices[r + c] for c in walk(col_axis)]
+                for r in walk(row_axis)]
+
+
+class Shards:
+    """One tensor split over the slots of a mesh axis: ``parts[j]``, on
+    slot j's device, is the j-th piece along ``dim``.  ``shape`` and
+    ``dtype`` are the whole tensor's, so layout rules written against
+    global arrays read it unchanged; ``full()`` concatenates the pieces
+    onto the first one's device."""
+
+    def __init__(self, parts, dim: int):
+        self.parts = list(parts)
+        self.dim = dim
+
+    @classmethod
+    def split(cls, value: torch.Tensor, devices, dim: int) -> "Shards":
+        """``value`` cut in ``len(devices)`` equal pieces along ``dim``,
+        each a contiguous tensor of its own on its slot's device."""
+        pieces = torch.chunk(value, len(devices), dim=dim)
+        return cls([p.to(d, memory_format=torch.contiguous_format,
+                         copy=True) for p, d in zip(pieces, devices)], dim)
+
+    @property
+    def shape(self) -> torch.Size:
+        shape = list(self.parts[0].shape)
+        shape[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        return torch.Size(shape)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.parts[0].dtype
+
+    def map(self, fn) -> "Shards":
+        return Shards([fn(p) for p in self.parts], self.dim)
+
+    def full(self) -> torch.Tensor:
+        device = self.parts[0].device
+        return torch.cat([p.to(device) for p in self.parts], dim=self.dim)
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor and ``Shards`` leaf of a tree of dicts,
+    lists and tuples; None and other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, (torch.Tensor, Shards)):
+        return fn(tree)
+    return tree
+
+
+def tree_tensors(tree) -> list:
+    """Every tensor of a tree in order, a ``Shards`` leaf's parts in slot
+    order."""
+    out = []
+
+    def visit(leaf):
+        out.extend(leaf.parts if isinstance(leaf, Shards) else [leaf])
+        return leaf
+
+    tree_map(visit, tree)
+    return out
+
+
+def gather_shards(tree):
+    """The same tree with every ``Shards`` leaf replaced by its whole
+    tensor (``Shards.full``): a per-slot layout back to global tensors."""
+    return tree_map(
+        lambda v: v.full() if isinstance(v, Shards) else v, tree
+    )
 
 
 def device_count() -> int:

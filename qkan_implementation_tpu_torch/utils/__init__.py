@@ -1,8 +1,6 @@
 """Device selection, parameter conversion and metrics; JSONL run records
-live in ``utils.run_records``.
-
-The JAX package's profiling and checkpoint helpers are not ported yet
-(ROADMAP.md, Queue 1: ``utils/{checkpoint,profiling}``).
+live in ``utils.run_records``, checkpoint helpers in ``utils.checkpoint``
+and stage timers and profiler traces in ``utils.profiling``.
 """
 
 from qkan_implementation_tpu_torch.utils.convert import (

@@ -3,6 +3,11 @@
 Counterpart of ``qkan_implementation_tpu.utils.platform``.  The caller
 names the device; nothing here picks one on its own, and a request for
 CUDA on a machine without a card raises instead of running on the CPU.
+
+The JAX module's ``apply_platform_env`` (``JAX_PLATFORMS`` /
+``jax.config``) and ``disable_default_compile_cache`` (XLA's persistent
+compile cache) are XLA settings with no torch meaning, so they have no
+counterpart here.
 """
 
 from __future__ import annotations

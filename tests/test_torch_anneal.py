@@ -282,10 +282,14 @@ def test_unported_and_invalid_arguments_raise():
         with pytest.raises(ValueError, match="sweep_block"):
             t_anneal.simulated_annealing(model, 2, 2, sweep_block=bad,
                                          device="cpu")
+    # the mesh samplers (tests/test_torch_mesh_train.py runs them) name
+    # the axis their chains split over
+    from qkan_implementation_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, axis_name="x", devices=["cpu"] * 2)
     for fn in (t_anneal.simulated_annealing_sharded,
                t_anneal.parallel_tempering_sharded,
                t_anneal.parallel_tempering_mesh_ladder):
-        with pytest.raises(NotImplementedError,
-                           match="the rest of the multi-device slice"):
-            fn(model, object())
+        with pytest.raises(ValueError, match="not in mesh axes"):
+            fn(model, mesh)
     assert set(t_anneal.__all__) == set(jax_anneal.__all__)

@@ -388,9 +388,12 @@ def test_mesh_helpers():
     assert [p.tolist() for p in pieces] == [[0, 1], [2, 3], [4, 5], [6, 7]]
     with pytest.raises(ValueError, match="divide"):
         parallel.shard_batch(torch.arange(6.0), m, "sv")
-    for stub in (parallel.kan_apply_tp, parallel.make_pp_train_step):
-        with pytest.raises(NotImplementedError, match="the rest of the multi-device slice"):
-            stub()
+    # the tp / pp paths (tests/test_torch_parallel_{tp,pp}.py) want their
+    # model axis on the mesh
+    with pytest.raises(ValueError, match="no model axis 'tp'"):
+        parallel.kan_apply_tp([], torch.zeros(4, 2), 1, m)
+    with pytest.raises(ValueError, match="no model axis 'pp'"):
+        parallel.make_pp_train_step(m, 1)
 
 
 def test_raising_cases(mesh):

@@ -272,9 +272,13 @@ def test_optimize_matches_jax(method, solver):
 def test_optimize_arguments():
     x, y = data(9, 60, 3, t_dim=2)
     tk = t_fk.FixedKAN(t_fk.FixedKANConfig([3, 2], 2), device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="the rest of the multi-device slice"):
-        tk.optimize(x, y, mesh=object())
+    # rows that do not divide the mesh axis: the search runs unsharded and
+    # says so (tests/test_torch_mesh_train.py runs the sharded search)
+    from qkan_implementation_tpu_torch.parallel import make_mesh
+
+    with pytest.warns(UserWarning, match="unsharded"):
+        tk.optimize(x, y, solver="exact",
+                    mesh=make_mesh(8, devices=["cpu"] * 8))
     with pytest.raises(ValueError, match="solver"):
         tk.optimize(x, y, solver="greedy")
     # integer labels: coefficients in the default float dtype, as numpy's

@@ -285,8 +285,12 @@ def test_train_errors_and_module_flag():
     with pytest.raises(RuntimeError, match="Run optimization"):
         tkan.train(x, y)
     tkan.params = params_from_numpy(network(0), "cpu")
-    with pytest.raises(NotImplementedError, match="the rest of the multi-device slice"):
-        tkan.train(x, y, mesh=object())
+    # mesh= trains on 'xla' only (tests/test_torch_mesh_train.py)
+    from qkan_implementation_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(ValueError, match="shard_map"):
+        tkan.train(x, y, mesh=make_mesh(2, devices=["cpu"] * 2),
+                   backend="fused")
     for cd in ("int8", "int8x2", "int8x2w", torch.int8):
         with pytest.raises(ValueError, match="zero gradient"):
             tkan.train(x, y, compute_dtype=cd)
