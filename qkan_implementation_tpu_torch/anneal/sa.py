@@ -36,8 +36,11 @@ import numpy as np
 import torch
 
 from qkan_implementation_tpu_torch.anneal.qubo import QuboModel
+from qkan_implementation_tpu_torch.ops._cuda_build import count_launches
 from qkan_implementation_tpu_torch.parallel.collectives import ppermute
+from qkan_implementation_tpu_torch.utils import profiling
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
+from qkan_implementation_tpu_torch.utils.profiling import span
 
 def default_beta_range(model: QuboModel) -> tuple[float, float]:
     """Heuristic (beta_hot, beta_cold) from the coupling magnitudes.
@@ -820,13 +823,26 @@ def solve_qubo(
     device="cuda",
 ) -> tuple[np.ndarray, float]:
     """Anneal on ``device`` (optionally polish one-hot blocks) and return
-    the best sample."""
-    samples, energies = simulated_annealing(
-        model, num_reads, num_sweeps, beta_range, seed,
-        block_structure=one_hot_block_size, device=device,
-    )
-    if one_hot_block_size is not None:
-        samples = polish_one_hot_blocks(model, samples, one_hot_block_size)
-        energies = model.energy(samples)
-    best = int(np.argmin(energies))
-    return samples[best], float(energies[best])
+    the best sample.
+
+    Counts its calls in ``solve_qubo.calls`` and the sweeps they asked
+    for in ``solve_qubo.sweeps``, once a call."""
+    count_launches(solve_qubo, "calls")
+    count_launches(solve_qubo, "sweeps", num_sweeps)
+    with span(profiling.ANNEAL_SOLVE):
+        with span(profiling.ANNEAL_SWEEPS):
+            samples, energies = simulated_annealing(
+                model, num_reads, num_sweeps, beta_range, seed,
+                block_structure=one_hot_block_size, device=device,
+            )
+        if one_hot_block_size is not None:
+            with span(profiling.ANNEAL_POLISH):
+                samples = polish_one_hot_blocks(model, samples,
+                                                one_hot_block_size)
+                energies = model.energy(samples)
+        best = int(np.argmin(energies))
+        return samples[best], float(energies[best])
+
+
+solve_qubo.calls = 0
+solve_qubo.sweeps = 0

@@ -57,7 +57,9 @@ from qkan_implementation_tpu_torch.utils.convert import (
     params_from_numpy,
     params_to_numpy,
 )
+from qkan_implementation_tpu_torch.utils import profiling
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
+from qkan_implementation_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -746,125 +748,135 @@ class FixedKAN(nn.Module):
         """
         if solver not in ("anneal", "exact"):
             raise ValueError(f"Unknown solver {solver!r}")
-        cfg = self.config
-        x = self._as_input(x_data)
-        y = self._as_input(y_data)
-        if y.dim() == 1:
-            y = y[:, None]
-        # coefficients are float regardless of the target dtype: integer
-        # labels must not truncate the fitted coefficients (numpy's
-        # promotion in the JAX package gives them the default float)
-        c_dtype = (torch.promote_types(y.dtype, torch.float32)
-                   if y.is_floating_point() else torch.get_default_dtype())
-        if not y.is_floating_point():
-            y = y.to(torch.promote_types(x.dtype, y.dtype))
-        xs, ys = [x], [y]
-        if mesh is not None:
-            axis = mesh.axis_names[0]
-            if x.shape[0] % mesh.shape[axis] == 0:
-                xs = shard_batch(x, mesh, axis)
-                ys = shard_batch(y, mesh, axis)
-            else:
-                # documented degradation, but never a SILENT one (train()
-                # raises for the same condition)
-                warnings.warn(
-                    f"row count {x.shape[0]} not divisible by mesh axis "
-                    f"{axis!r} ({mesh.shape[axis]} devices): structure "
-                    "search runs unsharded"
-                )
+        with span(profiling.OPTIMIZE):
+            cfg = self.config
+            x = self._as_input(x_data)
+            y = self._as_input(y_data)
+            if y.dim() == 1:
+                y = y[:, None]
+            # coefficients are float regardless of the target dtype: integer
+            # labels must not truncate the fitted coefficients (numpy's
+            # promotion in the JAX package gives them the default float)
+            c_dtype = (torch.promote_types(y.dtype, torch.float32)
+                       if y.is_floating_point() else torch.get_default_dtype())
+            if not y.is_floating_point():
+                y = y.to(torch.promote_types(x.dtype, y.dtype))
+            xs, ys = [x], [y]
+            if mesh is not None:
+                axis = mesh.axis_names[0]
+                if x.shape[0] % mesh.shape[axis] == 0:
+                    xs = shard_batch(x, mesh, axis)
+                    ys = shard_batch(y, mesh, axis)
+                else:
+                    # documented degradation, but never a SILENT one (train()
+                    # raises for the same condition)
+                    warnings.warn(
+                        f"row count {x.shape[0]} not divisible by mesh axis "
+                        f"{axis!r} ({mesh.shape[axis]} devices): structure "
+                        "search runs unsharded"
+                    )
 
-        params = []
-        current = xs
-        dp1 = cfg.max_degree + 1
-        self.last_quantum_resources = [] if use_quantum else None
-        self.last_search_stats = []
-        for layer_idx in range(len(cfg.network_shape) - 1):
-            out_dim = cfg.network_shape[layer_idx + 1]
-            x_fit = [torch.tanh(c) if cfg.consistent_tanh else c
-                     for c in current]
-            self._sweep_log = []
-            t0 = time.perf_counter()
-            if use_quantum:
-                scores, coeffs = self._evaluate_layer_degrees_quantum(
-                    _cat_rows(x_fit, self.device), _cat_rows(ys, self.device)
-                )
-            elif len(x_fit) == 1:
-                scores, coeffs = self._evaluate_layer_degrees(x_fit[0], y)
-            else:
-                scores, coeffs = self._evaluate_layer_degrees(x_fit, ys)
-            t1 = time.perf_counter()
-            model = degree_selection_qubo(
-                scores,
-                num_functions=out_dim,
-                complexity_weight=cfg.complexity_weight,
-                objective=cfg.degree_objective,
-            )
-            if solver == "anneal" and mesh is not None:
-                # pre-polish energies are recomputed after the one-hot
-                # polish; the sampler's own energies don't enter selection
-                samples, _ = simulated_annealing_sharded(
-                    model, mesh, axis_name=mesh.axis_names[0],
-                    num_reads=num_reads, num_sweeps=num_sweeps,
-                    seed=seed + layer_idx,
-                )
-                samples = polish_one_hot_blocks(model, samples, dp1)
-                sample = samples[int(np.argmin(model.energy(samples)))]
-            elif solver == "anneal":
-                sample, _ = solve_qubo(
-                    model,
-                    num_reads=num_reads,
-                    num_sweeps=num_sweeps,
-                    seed=seed + layer_idx,
-                    one_hot_block_size=dp1,
-                    device=self.device,
-                )
-            else:
-                lin = model.h[:dp1] + 0.0  # blocks are identical
-                sample = np.zeros(out_dim * dp1)
-                sample[int(np.argmin(lin))::dp1] = 1.0
-            t2 = time.perf_counter()
+            params = []
+            current = xs
+            dp1 = cfg.max_degree + 1
+            self.last_quantum_resources = [] if use_quantum else None
+            self.last_search_stats = []
+            for layer_idx in range(len(cfg.network_shape) - 1):
+                with span(profiling.OPTIMIZE_LAYER):
+                    out_dim = cfg.network_shape[layer_idx + 1]
+                    x_fit = [torch.tanh(c) if cfg.consistent_tanh else c
+                             for c in current]
+                    self._sweep_log = []
+                    t0 = time.perf_counter()
+                    with span(profiling.OPTIMIZE_SWEEP):
+                        if use_quantum:
+                            scores, coeffs = (
+                                self._evaluate_layer_degrees_quantum(
+                                    _cat_rows(x_fit, self.device),
+                                    _cat_rows(ys, self.device)))
+                        elif len(x_fit) == 1:
+                            scores, coeffs = self._evaluate_layer_degrees(
+                                x_fit[0], y)
+                        else:
+                            scores, coeffs = self._evaluate_layer_degrees(
+                                x_fit, ys)
+                    t1 = time.perf_counter()
+                    with span(profiling.OPTIMIZE_QUBO):
+                        model = degree_selection_qubo(
+                            scores,
+                            num_functions=out_dim,
+                            complexity_weight=cfg.complexity_weight,
+                            objective=cfg.degree_objective,
+                        )
+                    if solver == "anneal" and mesh is not None:
+                        # pre-polish energies are recomputed after the
+                        # one-hot polish; the sampler's own energies don't
+                        # enter selection
+                        samples, _ = simulated_annealing_sharded(
+                            model, mesh, axis_name=mesh.axis_names[0],
+                            num_reads=num_reads, num_sweeps=num_sweeps,
+                            seed=seed + layer_idx,
+                        )
+                        samples = polish_one_hot_blocks(model, samples, dp1)
+                        sample = samples[int(np.argmin(model.energy(samples)))]
+                    elif solver == "anneal":
+                        sample, _ = solve_qubo(
+                            model,
+                            num_reads=num_reads,
+                            num_sweeps=num_sweeps,
+                            seed=seed + layer_idx,
+                            one_hot_block_size=dp1,
+                            device=self.device,
+                        )
+                    else:
+                        lin = model.h[:dp1] + 0.0  # blocks are identical
+                        sample = np.zeros(out_dim * dp1)
+                        sample[int(np.argmin(lin))::dp1] = 1.0
+                    t2 = time.perf_counter()
 
-            degrees = np.argmax(sample.reshape(out_dim, dp1), axis=1).astype(
-                np.int32
-            )
-            in_dim = current[0].shape[1]
-            t_dim = y.shape[1]
-            C = torch.zeros((out_dim, in_dim, dp1, t_dim), dtype=c_dtype,
-                            device=self.device)
-            for d in np.unique(degrees):
-                rows = torch.as_tensor(
-                    np.flatnonzero(degrees == d), device=self.device
-                )
-                C[rows, :, : d + 1, :] = coeffs[d].reshape(
-                    in_dim, d + 1, t_dim
-                ).to(C.device, C.dtype)
-            layer_params = {
-                "degrees": torch.as_tensor(degrees, device=self.device),
-                "coefficients": C,
-                "horizontal_weights": torch.ones(
-                    out_dim, dtype=C.dtype, device=self.device
-                ),
-            }
-            params.append(layer_params)
-            current = [
-                kan_layer_apply({k: v.to(c.device)
-                                 for k, v in layer_params.items()},
-                                c, cfg.max_degree)
-                for c in current
-            ]
-            self.last_search_stats.append({
-                "layer": layer_idx,
-                "sweeps": self._sweep_log,
-                "route": "+".join(e["route"] for e in self._sweep_log)
-                or "quantum",
-                "slots": len(x_fit),
-                "scores": [float(v) for v in scores],
-                "degrees": degrees.tolist(),
-                "solve_seconds": t1 - t0,
-                "select_seconds": t2 - t1,
-            })
+                    with span(profiling.OPTIMIZE_ASSEMBLE):
+                        degrees = np.argmax(sample.reshape(out_dim, dp1),
+                                            axis=1).astype(np.int32)
+                        in_dim = current[0].shape[1]
+                        t_dim = y.shape[1]
+                        C = torch.zeros((out_dim, in_dim, dp1, t_dim),
+                                        dtype=c_dtype, device=self.device)
+                        for d in np.unique(degrees):
+                            rows = torch.as_tensor(
+                                np.flatnonzero(degrees == d),
+                                device=self.device
+                            )
+                            C[rows, :, : d + 1, :] = coeffs[d].reshape(
+                                in_dim, d + 1, t_dim
+                            ).to(C.device, C.dtype)
+                        layer_params = {
+                            "degrees": torch.as_tensor(degrees,
+                                                       device=self.device),
+                            "coefficients": C,
+                            "horizontal_weights": torch.ones(
+                                out_dim, dtype=C.dtype, device=self.device
+                            ),
+                        }
+                        params.append(layer_params)
+                        current = [
+                            kan_layer_apply({k: v.to(c.device)
+                                             for k, v in layer_params.items()},
+                                            c, cfg.max_degree)
+                            for c in current
+                        ]
+                    self.last_search_stats.append({
+                        "layer": layer_idx,
+                        "sweeps": self._sweep_log,
+                        "route": "+".join(e["route"] for e in self._sweep_log)
+                        or "quantum",
+                        "slots": len(x_fit),
+                        "scores": [float(v) for v in scores],
+                        "degrees": degrees.tolist(),
+                        "solve_seconds": t1 - t0,
+                        "select_seconds": t2 - t1,
+                    })
 
-        self.params = params
+            self.params = params
 
     def calculate_layer_complexity_weight(self, layer_idx: int,
                                           degree: int) -> float:
@@ -1010,74 +1022,79 @@ class FixedKAN(nn.Module):
             raise ValueError(f"Unknown trainable {trainable!r}")
         if lr_schedule not in ("none", "cosine"):
             raise ValueError(f"Unknown lr_schedule {lr_schedule!r}")
-        n = x.shape[0]
-        batch_size = min(batch_size, n)  # a batch can't exceed the dataset
-        steps = max(1, n // batch_size)
+        with span(profiling.TRAIN):
+            n = x.shape[0]
+            batch_size = min(batch_size, n)  # a batch can't exceed the dataset
+            steps = max(1, n // batch_size)
 
-        # leaves built from the buffers; the integer degrees stay outside
-        params = [
-            {
-                "degrees": lp["degrees"],
-                "coefficients": lp["coefficients"].detach().clone()
-                .requires_grad_(trainable == "all"),
-                "horizontal_weights": lp["horizontal_weights"].detach()
-                .clone().requires_grad_(),
-            }
-            for lp in self.params
-        ]
-        if mesh is not None:
-            params, batch_loss = self._mesh_loss(
-                params, mesh, mesh_axis, tensor_axis, backend, batch_size,
-                x, y_train, loss, compute_dtype, matmul_precision,
-            )
-        else:
-            def batch_loss(params, idx_row):
-                return loss_fn(params, x[idx_row], y_train[idx_row])
-
-        decay = epochs * steps if lr_schedule == "cosine" else None
-        groups = [AdamGroup(
-            [lp["horizontal_weights"] for lp in params], learning_rate,
-            grad_clip, decay,
-        )]
-        if trainable == "all":
-            dp1 = max_degree + 1
-            fanins = [
-                float(lp["coefficients"].shape[1] * dp1
-                      * lp["coefficients"].shape[0])
-                for lp in params
+            # leaves built from the buffers; the integer degrees stay outside
+            params = [
+                {
+                    "degrees": lp["degrees"],
+                    "coefficients": lp["coefficients"].detach().clone()
+                    .requires_grad_(trainable == "all"),
+                    "horizontal_weights": lp["horizontal_weights"].detach()
+                    .clone().requires_grad_(),
+                }
+                for lp in self.params
             ]
-            for lp, fanin in zip(params, fanins):
-                lr = (learning_rate * fanins[-1] / fanin
-                      if lr_scale == "fanin" else learning_rate)
-                # a tp-split leaf is one tensor a shard: one moment each
-                groups.append(AdamGroup(
-                    _leaf_tensors(lp["coefficients"]), lr, grad_clip, decay
-                ))
-        leaves = [p for grp in groups for p in grp.params]
+            if mesh is not None:
+                params, batch_loss = self._mesh_loss(
+                    params, mesh, mesh_axis, tensor_axis, backend, batch_size,
+                    x, y_train, loss, compute_dtype, matmul_precision,
+                )
+            else:
+                def batch_loss(params, idx_row):
+                    return loss_fn(params, x[idx_row], y_train[idx_row])
 
-        def train_step(idx_row):
-            l = batch_loss(params, idx_row)
-            grads = torch.autograd.grad(l, leaves)
-            k = 0
-            for grp in groups:
-                grp.step(grads[k : k + len(grp.params)])
-                k += len(grp.params)
-            return l.detach()
+            decay = epochs * steps if lr_schedule == "cosine" else None
+            groups = [AdamGroup(
+                [lp["horizontal_weights"] for lp in params], learning_rate,
+                grad_clip, decay,
+            )]
+            if trainable == "all":
+                dp1 = max_degree + 1
+                fanins = [
+                    float(lp["coefficients"].shape[1] * dp1
+                          * lp["coefficients"].shape[0])
+                    for lp in params
+                ]
+                for lp, fanin in zip(params, fanins):
+                    lr = (learning_rate * fanins[-1] / fanin
+                          if lr_scale == "fanin" else learning_rate)
+                    # a tp-split leaf is one tensor a shard: one moment each
+                    groups.append(AdamGroup(
+                        _leaf_tensors(lp["coefficients"]), lr, grad_clip, decay
+                    ))
+            leaves = [p for grp in groups for p in grp.params]
 
-        rng = np.random.default_rng(seed)
-        losses, diverged = self._run_epochs(
-            train_step,
-            [t for lp in params for key in ("coefficients",
-                                            "horizontal_weights")
-             for t in _leaf_tensors(lp[key])],
-            rng, epochs, n, steps, batch_size, verbose,
-        )
-        self.params = [
-            {k: _whole(v).detach() for k, v in lp.items()} for lp in params
-        ]
-        self.last_train_diverged = diverged
-        self.last_train_losses = list(losses)
-        return losses
+            def train_step(idx_row):
+                with span(profiling.TRAIN_STEP):
+                    with span(profiling.TRAIN_FORWARD):
+                        l = batch_loss(params, idx_row)
+                    with span(profiling.TRAIN_BACKWARD):
+                        grads = torch.autograd.grad(l, leaves)
+                    with span(profiling.TRAIN_ADAM):
+                        k = 0
+                        for grp in groups:
+                            grp.step(grads[k : k + len(grp.params)])
+                            k += len(grp.params)
+                    return l.detach()
+
+            rng = np.random.default_rng(seed)
+            losses, diverged = self._run_epochs(
+                train_step,
+                [t for lp in params for key in ("coefficients",
+                                                "horizontal_weights")
+                 for t in _leaf_tensors(lp[key])],
+                rng, epochs, n, steps, batch_size, verbose,
+            )
+            self.params = [
+                {k: _whole(v).detach() for k, v in lp.items()} for lp in params
+            ]
+            self.last_train_diverged = diverged
+            self.last_train_losses = list(losses)
+            return losses
 
     def _mesh_loss(self, params, mesh, mesh_axis, tensor_axis, backend,
                    batch_size, x, y_train, loss, compute_dtype,
@@ -1175,27 +1192,29 @@ class FixedKAN(nn.Module):
         last_good = [t.detach().clone() for t in leaves]
         diverged = False
         for epoch in range(epochs):
-            perm = rng.permutation(n)[: steps * batch_size]
-            idx = torch.from_numpy(perm.reshape(steps, batch_size)).to(
-                self.device
-            )
-            ls = torch.stack([train_step(row) for row in idx])
-            ls = ls.cpu().numpy().astype(np.float64)
-            if not np.isfinite(ls).all():
-                bad = int(np.argmax(~np.isfinite(ls)))
-                logging.getLogger(__name__).warning(
-                    "Non-finite loss at epoch %d step %d; stopping and "
-                    "restoring the last finite epoch's parameters",
-                    epoch, bad,
+            with span(profiling.TRAIN_EPOCH):
+                perm = rng.permutation(n)[: steps * batch_size]
+                idx = torch.from_numpy(perm.reshape(steps, batch_size)).to(
+                    self.device
                 )
-                with torch.no_grad():
+                ls = torch.stack([train_step(row) for row in idx])
+                with span(profiling.TRAIN_EPOCH_END):
+                    ls = ls.cpu().numpy().astype(np.float64)
+                    if not np.isfinite(ls).all():
+                        bad = int(np.argmax(~np.isfinite(ls)))
+                        logging.getLogger(__name__).warning(
+                            "Non-finite loss at epoch %d step %d; stopping "
+                            "and restoring the last finite epoch's "
+                            "parameters", epoch, bad,
+                        )
+                        with torch.no_grad():
+                            for t, good in zip(leaves, last_good):
+                                t.copy_(good)
+                        diverged = True
+                        break
                     for t, good in zip(leaves, last_good):
-                        t.copy_(good)
-                diverged = True
-                break
-            for t, good in zip(leaves, last_good):
-                good.copy_(t.detach())
-            losses.append(float(ls.mean()))
+                        good.copy_(t.detach())
+                    losses.append(float(ls.mean()))
             if verbose:
                 print(f"Epoch {epoch+1}/{epochs}, avg Loss: {losses[-1]:.4f}")
         return losses, diverged

@@ -245,6 +245,8 @@ _LAUNCHES_LOCK = threading.Lock()
 
 
 def count_launches(owner, attr: str, n: int = 1) -> None:
-    """Add ``n`` to the launch count ``owner.attr``."""
+    """Add ``n`` to the count ``owner.attr``: a kernel's launches, or
+    another number of the program's work (``solve_qubo.calls``,
+    ``solve_qubo.sweeps``)."""
     with _LAUNCHES_LOCK:
         setattr(owner, attr, getattr(owner, attr) + n)

@@ -42,8 +42,10 @@ from qkan_implementation_tpu_torch.optim.base import (
     BaseOptimizer,
     _extract_features,
 )
+from qkan_implementation_tpu_torch.utils import profiling
 from qkan_implementation_tpu_torch.utils.metrics import compute_metrics
 from qkan_implementation_tpu_torch.utils.platform import resolve_device
+from qkan_implementation_tpu_torch.utils.profiling import span
 
 
 def _gram_stats(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -218,35 +220,39 @@ class DegreeOptimizer(BaseOptimizer):
             if weights is None
             else _as_numpy(weights).reshape(-1, 1).astype(np.float64)
         )
-        x_d, y_d, w_d = (self._on_device(a) for a in (feature_data, y, w_np))
-        stats = None
-        for start in range(0, n, self._CHUNK):
-            end = min(start + self._CHUNK, n)
-            chunk = _gram_stats(x_d[start:end], y_d[start:end],
-                                w_d[start:end], self.max_degree)
-            stats = chunk if stats is None else tuple(
-                s + c for s, c in zip(stats, chunk))
-        G, b, Gw, bw, yyw, w_total = (s.cpu().numpy() for s in stats)
+        with span(profiling.DOPT_GRAM):
+            x_d, y_d, w_d = (self._on_device(a)
+                             for a in (feature_data, y, w_np))
+            stats = None
+            for start in range(0, n, self._CHUNK):
+                end = min(start + self._CHUNK, n)
+                chunk = _gram_stats(x_d[start:end], y_d[start:end],
+                                    w_d[start:end], self.max_degree)
+                stats = chunk if stats is None else tuple(
+                    s + c for s, c in zip(stats, chunk))
+            G, b, Gw, bw, yyw, w_total = (s.cpu().numpy() for s in stats)
         yyw_sum = float(yyw.sum())
         w_total = float(w_total)
 
         scores = np.zeros(dp1)
         comp_r2 = np.zeros(dp1)
-        for d in range(dp1):
-            k = (d + 1) * f
-            Gd = G[:k, :k]
-            ridge = 1e-10 * (np.trace(Gd) / k + 1e-30)
-            c = np.linalg.solve(Gd + ridge * np.eye(k), b[:k])  # [k, T]
-            # weighted residual per target via quadratic forms:
-            # sum w (y - Xc)^2 = y'Wy - 2 c'X'Wy + c'X'WX c
-            res_w = (
-                yyw
-                - 2 * np.einsum("kt,kt->t", c, bw[:k])
-                + np.einsum("kt,kj,jt->t", c, Gw[:k, :k], c)
-            )
-            res_w = float(np.maximum(res_w, 0.0).sum())  # pooled over targets
-            scores[d] = res_w / (w_total * n_targets)
-            comp_r2[d] = 1.0 - res_w / yyw_sum if yyw_sum > 1e-30 else 0.0
+        with span(profiling.DOPT_SCORE):
+            for d in range(dp1):
+                k = (d + 1) * f
+                Gd = G[:k, :k]
+                ridge = 1e-10 * (np.trace(Gd) / k + 1e-30)
+                c = np.linalg.solve(Gd + ridge * np.eye(k), b[:k])  # [k, T]
+                # weighted residual per target via quadratic forms:
+                # sum w (y - Xc)^2 = y'Wy - 2 c'X'Wy + c'X'WX c
+                res_w = (
+                    yyw
+                    - 2 * np.einsum("kt,kt->t", c, bw[:k])
+                    + np.einsum("kt,kj,jt->t", c, Gw[:k, :k], c)
+                )
+                # pooled over targets
+                res_w = float(np.maximum(res_w, 0.0).sum())
+                scores[d] = res_w / (w_total * n_targets)
+                comp_r2[d] = 1.0 - res_w / yyw_sum if yyw_sum > 1e-30 else 0.0
         return scores, comp_r2
 
     def is_degree_definitive(self, scores: np.ndarray) -> Tuple[bool, int]:
@@ -287,12 +293,13 @@ class DegreeOptimizer(BaseOptimizer):
             scores = np.asarray(scores)
         is_definitive, definitive_degree = self.is_degree_definitive(scores)
 
-        model = degree_selection_qubo(
-            scores,
-            num_functions=num_functions,
-            complexity_weight=self.complexity_weight,
-            definitive_degree=definitive_degree if is_definitive else None,
-        )
+        with span(profiling.DOPT_QUBO):
+            model = degree_selection_qubo(
+                scores,
+                num_functions=num_functions,
+                complexity_weight=self.complexity_weight,
+                definitive_degree=definitive_degree if is_definitive else None,
+            )
         sample, _ = solve_qubo(
             model,
             num_reads=num_reads,
@@ -403,44 +410,45 @@ class DegreeOptimizer(BaseOptimizer):
         on the previous layer's activations, wires the per-layer one-hot
         weights into a stack, and ``predict`` runs the whole stack.
         """
-        feature_data = _extract_features(x_data).astype(np.float64)
-        self.feature_means = feature_data.mean(axis=0)
-        self.feature_stds = feature_data.std(axis=0) + 1e-8
+        with span(profiling.DOPT_FIT):
+            feature_data = _extract_features(x_data).astype(np.float64)
+            self.feature_means = feature_data.mean(axis=0)
+            self.feature_stds = feature_data.std(axis=0) + 1e-8
 
-        if not full_network or self.num_layers == 1:
-            self.optimal_degrees = self.optimize_layer(
-                layer_idx=0, x_data=x_data, y_data=y_data, weights=weights,
-                **optimize_kwargs,
-            )
-            self.qkan_weights = self._one_hot_weights(
-                self.optimal_degrees,
-                self.network_shape[0],
-                self.network_shape[1],
-                self.max_degree,
-            )
-            self.qkan_weights_stack = None
-            return
+            if not full_network or self.num_layers == 1:
+                self.optimal_degrees = self.optimize_layer(
+                    layer_idx=0, x_data=x_data, y_data=y_data, weights=weights,
+                    **optimize_kwargs,
+                )
+                self.qkan_weights = self._one_hot_weights(
+                    self.optimal_degrees,
+                    self.network_shape[0],
+                    self.network_shape[1],
+                    self.max_degree,
+                )
+                self.qkan_weights_stack = None
+                return
 
-        current = (feature_data - self.feature_means) / self.feature_stds
-        stack = []
-        all_degrees = []
-        for layer_idx in range(self.num_layers):
-            N = self.network_shape[layer_idx]
-            K = self.network_shape[layer_idx + 1]
-            # deeper layers see fresh activations: clear the score cache
-            self.degree_scores = {}
-            degrees = self.optimize_layer(
-                layer_idx=layer_idx, x_data=current, y_data=y_data,
-                weights=weights, **optimize_kwargs,
-            )
-            w_arr = self._one_hot_weights(degrees, N, K, self.max_degree)
-            stack.append(w_arr)
-            all_degrees.append(degrees)
-            current = self._layer_forward(current, w_arr, N, K)
-        self.optimal_degrees = all_degrees[0]
-        self.optimal_degrees_stack = all_degrees
-        self.qkan_weights = stack[0]
-        self.qkan_weights_stack = stack
+            current = (feature_data - self.feature_means) / self.feature_stds
+            stack = []
+            all_degrees = []
+            for layer_idx in range(self.num_layers):
+                N = self.network_shape[layer_idx]
+                K = self.network_shape[layer_idx + 1]
+                # deeper layers see fresh activations: clear the score cache
+                self.degree_scores = {}
+                degrees = self.optimize_layer(
+                    layer_idx=layer_idx, x_data=current, y_data=y_data,
+                    weights=weights, **optimize_kwargs,
+                )
+                w_arr = self._one_hot_weights(degrees, N, K, self.max_degree)
+                stack.append(w_arr)
+                all_degrees.append(degrees)
+                current = self._layer_forward(current, w_arr, N, K)
+            self.optimal_degrees = all_degrees[0]
+            self.optimal_degrees_stack = all_degrees
+            self.qkan_weights = stack[0]
+            self.qkan_weights_stack = stack
 
     def predict(self, x_data) -> np.ndarray:
         """Normalize by the stored statistics and run the batched QKAN
@@ -448,15 +456,16 @@ class DegreeOptimizer(BaseOptimizer):
         layer stack runs."""
         if self.qkan_weights is None:
             raise RuntimeError("Not fitted yet")
-        feature_data = _extract_features(x_data).astype(np.float64)
-        current = (feature_data - self.feature_means) / self.feature_stds
-        stack = self.qkan_weights_stack or [self.qkan_weights]
-        for layer_idx, w_arr in enumerate(stack):
-            current = self._layer_forward(
-                current, np.asarray(w_arr), self.network_shape[layer_idx],
-                self.network_shape[layer_idx + 1],
-            )
-        return current
+        with span(profiling.DOPT_PREDICT):
+            feature_data = _extract_features(x_data).astype(np.float64)
+            current = (feature_data - self.feature_means) / self.feature_stds
+            stack = self.qkan_weights_stack or [self.qkan_weights]
+            for layer_idx, w_arr in enumerate(stack):
+                current = self._layer_forward(
+                    current, np.asarray(w_arr), self.network_shape[layer_idx],
+                    self.network_shape[layer_idx + 1],
+                )
+            return current
 
     # -- analysis ---------------------------------------------------------
     def analyze_network(self, x_data, y_data) -> Dict:

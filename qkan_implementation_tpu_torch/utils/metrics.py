@@ -16,6 +16,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from qkan_implementation_tpu_torch.utils import profiling
+from qkan_implementation_tpu_torch.utils.profiling import span
+
 
 def _as_tensor(a, dtype=None, device=None) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
@@ -83,8 +86,9 @@ def weighted_competition_r2(y_true, y_pred, weights=None) -> float:
 
 def compute_metrics(y_true, y_pred, weights=None) -> dict:
     """MSE and both R^2 flavours in one record."""
-    return {
-        "mse": mse(y_true, y_pred, weights),
-        "r2": r2_score(y_true, y_pred, weights),
-        "comp_r2": weighted_competition_r2(y_true, y_pred, weights),
-    }
+    with span(profiling.METRICS):
+        return {
+            "mse": mse(y_true, y_pred, weights),
+            "r2": r2_score(y_true, y_pred, weights),
+            "comp_r2": weighted_competition_r2(y_true, y_pred, weights),
+        }

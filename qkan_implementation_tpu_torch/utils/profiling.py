@@ -3,8 +3,16 @@
 Counterpart of ``qkan_implementation_tpu.utils.profiling``.  The
 reference instruments with ad-hoc ``time.time()`` prints -- per-stage
 breakdowns with percentages and memory footprint (``LCUStep.py:126-161``);
-``StageTimer`` keeps that report shape and annotates each stage with
-``torch.profiler.record_function`` so it shows on a profiler timeline.
+``StageTimer`` keeps that report shape and annotates each stage through
+``span`` so it shows on a profiler timeline.
+
+Spans: ``span(name)`` marks a layer boundary of the main path (the
+trainer, the structure search, the annealer, the market trial) on the
+profiler's own clock, the one its kernels and operators are stamped on.
+While a ``torch.profiler`` runs it is a ``record_function``; otherwise
+it is one shared ``nullcontext``, so an untraced call pays one check and
+allocates nothing.  ``device_trace`` writes the spans out beside the
+kernels.  Every name the program emits is in ``SPANS``.
 
 Clocks: a stage and ``timeit_jit`` read the host clock around work that
 ends in a device synchronise (a torch caller has no ``block_until_ready``
@@ -20,6 +28,54 @@ import time
 from typing import Dict, Optional
 
 import torch
+
+
+# the program's spans, outermost first within each path
+TRAIN = "qkan.train"  # FixedKAN.train after its argument checks
+TRAIN_EPOCH = "qkan.train.epoch"
+TRAIN_STEP = "qkan.train.step"
+TRAIN_FORWARD = "qkan.train.forward"  # row gather, kan_apply, loss
+TRAIN_BACKWARD = "qkan.train.backward"  # torch.autograd.grad
+TRAIN_ADAM = "qkan.train.adam"  # every AdamGroup.step, clipping included
+TRAIN_EPOCH_END = "qkan.train.epoch_end"  # losses to the host, last_good
+OPTIMIZE = "qkan.optimize"  # FixedKAN.optimize
+OPTIMIZE_LAYER = "qkan.optimize.layer"
+OPTIMIZE_SWEEP = "qkan.optimize.sweep"  # every degree's fit and score
+OPTIMIZE_QUBO = "qkan.optimize.qubo"  # degree_selection_qubo
+OPTIMIZE_ASSEMBLE = "qkan.optimize.assemble"  # C, the next layer's input
+ANNEAL_SOLVE = "qkan.anneal.solve_qubo"
+ANNEAL_SWEEPS = "qkan.anneal.sweeps"  # the sweeps and the read that waits
+ANNEAL_POLISH = "qkan.anneal.polish"  # one-hot polish, energies after it
+DOPT_FIT = "qkan.dopt.fit"  # DegreeOptimizer.fit
+DOPT_GRAM = "qkan.dopt.gram"  # Gram statistics, their copy to the host
+DOPT_SCORE = "qkan.dopt.score"  # the host solves of every degree
+DOPT_QUBO = "qkan.dopt.qubo"
+DOPT_PREDICT = "qkan.dopt.predict"
+METRICS = "qkan.metrics"  # utils.metrics.compute_metrics
+
+SPANS = (
+    TRAIN, TRAIN_EPOCH, TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD,
+    TRAIN_ADAM, TRAIN_EPOCH_END,
+    OPTIMIZE, OPTIMIZE_LAYER, OPTIMIZE_SWEEP, OPTIMIZE_QUBO,
+    OPTIMIZE_ASSEMBLE,
+    ANNEAL_SOLVE, ANNEAL_SWEEPS, ANNEAL_POLISH,
+    DOPT_FIT, DOPT_GRAM, DOPT_SCORE, DOPT_QUBO, DOPT_PREDICT,
+    METRICS,
+)
+
+# nullcontext keeps no state, so one object serves every untraced span,
+# nested or not
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager marking ``name`` on the running profiler's
+    timeline: ``torch.profiler.record_function(name)`` while a profiler
+    is active, else one shared no-op context (no allocation, no
+    ``record_function``)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _sync() -> None:
@@ -46,11 +102,7 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        ctx = (
-            torch.profiler.record_function(name)
-            if self.annotate_trace
-            else contextlib.nullcontext()
-        )
+        ctx = span(name) if self.annotate_trace else _OFF
         start = time.perf_counter()
         with ctx:
             yield
