@@ -211,15 +211,23 @@ Phases, each reported on its own lines:
    a. the annealers on the card against exact answers: ``solve_qubo`` on
       the degree QUBO at 32 functions x 6 degrees, both objectives, 1000
       reads and 1000 sweeps, equal to the blockwise argmin (host ms,
-      device ms and launches, counted by ``torch.profiler`` over 10 and 40
-      sweeps and carried to 1000); SA on the dense (delayed) and the
+      device ms and launches, counted by ``torch.profiler`` over the
+      whole call); SA on the dense (delayed) and the
       block-diagonal (blocked) kernel, parallel tempering and the C++
       annealer through the port's binding at n = 12 and 16, the best
       energy equal to ``brute_force_native``'s within 1e-9 max(1, |E|);
-      the delayed sweep's ms a sweep at n = 64 and 256;
+      the delayed sweep's ms a sweep at n = 64 and 256; then S1, the
+      block-diagonal sweep kernel (``anneal.sa.blocked_sweeps``,
+      ``csrc/anneal_blocked.cu``), on one chunk of an anneal's sweeps at
+      the search cells' shapes (block size 6 with 32, 16 and 10 blocks;
+      4 with 79; 1000 reads, float32): its state and fields equal to the
+      plain version's (``_blocked_sweeps``) on the same inputs bit for
+      bit, one launch, spins flipped; its ms, the plain version's and the
+      bound at 32 and 79 blocks;
    b. ``optimize`` of the recommended [784,32,16,16,10] config on 10k
       digits-784 rows, solver 'anneal' and 'exact': the degrees equal, the
-      design matrix, its factor and the anneal state on the card, each
+      design matrix, its factor and the anneal state on the card, every
+      sweep of the anneal run in S1, each
       layer's route, scores, solve and anneal ms; the scores within 1e-3
       of the same code on the CPU in float32 on the same layer inputs,
       and of it in float64 where float64 takes the same route (layer 0's
@@ -253,7 +261,8 @@ Phases, each reported on its own lines:
       1000 reads): the Gram statistics on the card, the 79 degrees JAX's
       (all 0), the val MSE a degree within 1e-6 of the JAX package's in
       float64, the best within 1e-6 of the record and its comp-R^2 within
-      1e-7; seconds a stage and the anneal's launches;
+      1e-7; seconds a stage and the anneal's launches; every sweep of
+      the search in S1;
    b. ``run_experiment`` on ``config.yaml``'s models at its 100,000 rows
       plus a fixed_kan [79, 8, 1], cut in depth only (1 trial, 3 MLP
       epochs, 2 fixed_kan epochs; logged): finite results, the qkan
@@ -303,9 +312,10 @@ Phases, each reported on its own lines:
 The counts of kernel launches are set to 0 just before each main path
 (the serving slice, each training run, each trained model's request,
 each path of phase 10, the headline step, the M3 chain and its
-both-arguments step, each path of 14b and 14c, the flagship experiment
-and its served model, each int8 recipe's serving, the market harness
-and 18f's FABLE simulation) and read just after;
+both-arguments step, each path of 14b and 14c, 15b's structure search,
+the flagship experiment and its served model, each int8 recipe's
+serving, 17a's degree search, the market harness and 18f's FABLE
+simulation) and read just after;
 launches made to compare
 kernels with their plain versions are not counted.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the kernels'
@@ -532,6 +542,7 @@ COUNTERS = [
     ("m3_dm_sum", pl3.m3_dm_partial_sum, "launches"),
     ("exchange_ucry", rdma.ucry_exchange_fused_rdma, "launches"),
     ("exchange_h", rdma.h_exchange_fused_rdma, "launches"),
+    ("anneal_blocked", anneal_sa.blocked_sweeps, "launches"),
 ]
 
 
@@ -3354,23 +3365,18 @@ def check_annealers(device, smi: str) -> dict:
         if not np.array_equal(sample, exact):
             raise AssertionError(f"solve_qubo ({objective}): sample is not "
                                  "the blockwise argmin")
-        # the profiler's cost grows with the events it keeps: profile 10
-        # and 40 sweeps, and carry the per-sweep difference to the run
-        short = {k: profiled_launches(lambda k=k: solve_qubo(
-            model, QUBO_READS, k, seed=SEED, one_hot_block_size=DP1,
-            device=device)) for k in (10, 40)}
-        per_sweep = [(b - a) / 30 for a, b in zip(short[10], short[40])]
-        launches = round(short[10][0] + per_sweep[0] * (QUBO_SWEEPS - 10))
-        device_ms = short[10][1] + per_sweep[1] * (QUBO_SWEEPS - 10)
+        # the whole call under the profiler: its sweeps run in S1, one
+        # launch a chunk, so the profiler keeps few events
+        launches, device_ms = profiled_launches(solve)
         out[f"solve_qubo_{objective}"] = {
             "ms": ms, "device_ms": device_ms, "launches": launches,
-            "launches_per_sweep": per_sweep[0],
+            "launches_per_sweep": launches / QUBO_SWEEPS,
             "steps": QUBO_SWEEPS * DP1}
         log("anneal", check=f"solve_qubo_{objective}",
             functions=QUBO_FUNCS, degrees=DP1, reads=QUBO_READS,
             sweeps=QUBO_SWEEPS, equals_exact=True, ms=f"{ms:.1f}",
             device_ms=f"{device_ms:.1f}", launches=launches,
-            launches_per_step=f"{per_sweep[0] / DP1:.2f}",
+            launches_per_step=f"{launches / QUBO_SWEEPS / DP1:.4f}",
             card=f"'{smi}'")
     for n in (12, 16):
         cases = {
@@ -3411,6 +3417,97 @@ def check_annealers(device, smi: str) -> dict:
     return out
 
 
+# 15a: the block-diagonal sweep kernel (S1) at the search cells' shapes:
+# (bs, nb) of the degree QUBO of each digits-search layer (degree 5, the
+# flagship's output widths) and of market-search (degree 3, 79 features),
+# at 1000 reads, on one chunk of the anneal's sweeps; timed at the first
+# and the last
+S1_SHAPES = {"digits_layer0": (DP1, 32), "digits_layer1_2": (DP1, 16),
+             "digits_layer3": (DP1, 10), "market": (4, 79)}
+S1_TIMED = ("digits_layer0", "market")
+
+
+def blocked_chunk(bs: int, nb: int, seed: int, device):
+    """(s, f, u, betas, J_blocks) of the first chunk of a block-diagonal
+    anneal on the card, made as ``_anneal_kernel_blocked`` makes them: a
+    random block QUBO, the state and uniforms from the anneal's
+    generator, the fields h + J s, the schedule of ``QUBO_SWEEPS`` sweeps
+    in float32."""
+    model = block_qubo(nb, bs, seed)
+    f32 = torch.float32
+    h = torch.as_tensor(model.h.reshape(nb, bs), dtype=f32, device=device)
+    J = torch.as_tensor(anneal_sa._block_diagonal_J(model, bs), dtype=f32,
+                        device=device)
+    gen = anneal_sa._generator(seed, device)
+    shape = (bs, QUBO_READS, nb)
+    s = anneal_sa._bernoulli_half(gen, shape, h)
+    f = (h.T[:, None, :] + torch.einsum("bij,jrb->irb", J, s)).contiguous()
+    k = anneal_sa._sweep_chunk(shape, f32, QUBO_SWEEPS)
+    u = anneal_sa._uniform(gen, (k, *shape), h)
+    betas = torch.tensor(anneal_sa._schedule(
+        anneal_sa.default_beta_range(model), QUBO_SWEEPS, f32)[:k],
+        dtype=f32).to(device)
+    return s, f, u, betas, J
+
+
+def check_blocked_kernel(device, smi: str) -> tuple[float, dict]:
+    """Phase 15a, last: S1 (``blocked_sweeps`` on the card) against its
+    plain version (``_blocked_sweeps``, the torch ops) on the same state,
+    uniforms, schedule and couplings, bit for bit; then its ms a chunk,
+    the plain version's and the bound (the uniforms read once, the state
+    and fields read and written once) at ``S1_TIMED``.  Returns (max abs
+    error, the table)."""
+    worst, table = 0.0, {}
+    for i, (name, (bs, nb)) in enumerate(S1_SHAPES.items()):
+        s, f, u, betas, J = blocked_chunk(bs, nb, SEED + 21 + i, device)
+        k = u.shape[0]
+        s_ref, f_ref = s.clone(), f.clone()
+        anneal_sa._blocked_sweeps(s_ref, f_ref, u, betas, J)
+        s_k, f_k = s.clone(), f.clone()
+        before = anneal_sa.blocked_sweeps.launches
+        anneal_sa.blocked_sweeps(s_k, f_k, u, betas, J)
+        torch.cuda.synchronize()
+        launches = anneal_sa.blocked_sweeps.launches - before
+        err = max(float((s_k - s_ref).abs().max()),
+                  float((f_k - f_ref).abs().max()))
+        flips = int((s_k != s).sum())
+        worst = max(worst, err)
+        row = {"bs": bs, "nb": nb, "reads": QUBO_READS, "sweeps": k,
+               "max_abs_err": err, "flips": flips, "launches": launches}
+        if name in S1_TIMED:
+            ws, wf = s.clone(), f.clone()
+            ps, pf = s.clone(), f.clone()
+
+            def kern():
+                anneal_sa.blocked_sweeps(ws, wf, u, betas, J)
+
+            def plain():
+                anneal_sa._blocked_sweeps(ps, pf, u, betas, J)
+
+            ms, plain_ms = paired_ms(kern, plain, reps=10, warm=2)
+            kernels = device_per_call(kern)
+            dev = sum(us for _, us in kernels) if kernels else None
+            chains = QUBO_READS * nb
+            nbytes = 4 * (u.numel() + 4 * bs * chains + J.numel() + k)
+            bound_ms, bound_by = bound(nbytes, 2.0 * k * bs * bs * chains)
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, device_us=dev,
+                       us_per_sweep=ms * 1e3 / k,
+                       device_us_per_sweep=dev / k if dev else None)
+        table[name] = row
+        log("anneal", check="blocked_kernel", shape=name, bs=bs, nb=nb,
+            reads=QUBO_READS, sweeps=k, max_abs_err=f"{err:.3e}", bar=0,
+            flips=flips, launches=launches,
+            **{key: (f"{row[key]:.4f}" if isinstance(row[key], float)
+                     else row[key])
+               for key in ("ms", "plain_ms", "bound_ms", "device_us")
+               if key in row}, card=f"'{smi}'")
+        if err != 0.0 or launches != 1 or not flips:
+            raise AssertionError(f"blocked kernel at {name}: err {err}, "
+                                 f"{launches} launches, {flips} flips")
+    return worst, table
+
+
 def layer_inputs_of(kan, x):
     """Each layer's fit input (tanh of its input: consistent_tanh) on the
     card, from the model's own parameters."""
@@ -3421,8 +3518,23 @@ def layer_inputs_of(kan, x):
     return fits
 
 
-def run_structure_search(device, smi: str) -> dict:
-    """Phase 15b: structure search at full width on the card."""
+def kernel_sweep_share(fn) -> float:
+    """Run ``fn`` and return the share (%) of the sweeps it asked
+    ``solve_qubo`` for that ran in S1 (``anneal_kernel_sweep_pct``), None
+    where it asked for none."""
+    asked = anneal_sa.solve_qubo.sweeps
+    swept = anneal_sa.simulated_annealing.kernel_sweeps
+    fn()
+    asked = anneal_sa.solve_qubo.sweeps - asked
+    if not asked:
+        return None
+    return 100.0 * (anneal_sa.simulated_annealing.kernel_sweeps
+                    - swept) / asked
+
+
+def run_structure_search(device, paths: dict, smi: str) -> dict:
+    """Phase 15b: structure search at full width on the card; its anneal
+    run is a main path ("structure_search")."""
     x, labels, meta = load_digits_784(train=True, augment_to=SEARCH_ROWS,
                                       seed=SEED)
     y = to_one_hot(labels, T)
@@ -3441,12 +3553,22 @@ def run_structure_search(device, smi: str) -> dict:
         kans = {}
         for solver in ("anneal", "exact"):
             kans[solver] = FixedKAN(cfg, device=device)
-            t0 = time.perf_counter()
-            kans[solver].optimize(x, y, solver=solver, seed=SEED)
             torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            share = kernel_sweep_share(lambda: kans[solver].optimize(
+                x, y, solver=solver, seed=SEED))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if solver == "anneal":
+                paths["structure_search"] = read_counts()
+                if share != 100.0:
+                    raise AssertionError(f"{share}% of the search's sweeps "
+                                         "in S1")
             log("search", solver=solver, rows=x.shape[0],
-                data=meta["source"],
-                seconds=f"{time.perf_counter() - t0:.3f}", card=f"'{smi}'")
+                data=meta["source"], seconds=f"{seconds:.3f}",
+                s1_launches=read_counts()["anneal_blocked"],
+                kernel_sweep_pct=share, card=f"'{smi}'")
     finally:
         anneal_sa._anneal_kernel_blocked = real_kernel
     if state_devices != [device.type] * (len(SHAPE) - 1):
@@ -3800,9 +3922,9 @@ def market_config(n_rows: int, data_path: str = "(columns)") -> DataConfig:
         weight_col="weight", date_col="date_id")
 
 
-def run_market_search(device, smi: str) -> dict:
+def run_market_search(device, paths: dict, smi: str) -> dict:
     """17a: the degree search at the record's size, its Gram statistics
-    on the card."""
+    on the card; the search is a main path ("market_search")."""
     t0 = time.perf_counter()
     cols = market_columns(**MARKET)
     t1 = time.perf_counter()
@@ -3827,25 +3949,24 @@ def run_market_search(device, smi: str) -> dict:
     dopt._gram_stats, dopt.solve_qubo = stats_spy, solve_spy
     try:
         opt = DegreeOptimizer([MARKET["n_features"], 1], 3, device=device)
+        torch.cuda.synchronize()
+        reset_counts()
         t3 = time.perf_counter()
-        degrees = opt.optimize_layer(0, tr, tt, weights=tw, num_reads=1000)
+        found = {}
+        share = kernel_sweep_share(lambda: found.setdefault(
+            "degrees", opt.optimize_layer(0, tr, tt, weights=tw,
+                                          num_reads=1000)))
+        degrees = found["degrees"]
         torch.cuda.synchronize()
         t4 = time.perf_counter()
+        paths["market_search"] = read_counts()
         scores, comp_r2 = opt.evaluate_degree(va, vt, weights=vw)
         t5 = time.perf_counter()
     finally:
         dopt._gram_stats, dopt.solve_qubo = real_stats, real_solve
-    # the anneal's launches, from 10 and 40 sweeps carried to 1000 (15a)
-    kw = dict(anneal["kw"])
-    short = {}
-    for k in (10, 40):
-        kw["num_sweeps"] = k
-        short[k] = profiled_launches(
-            lambda kw=kw: real_solve(anneal["model"], **kw))
-    sweeps = anneal["kw"]["num_sweeps"]
-    per_sweep = [(b - a) / 30 for a, b in zip(short[10], short[40])]
-    launches = round(short[10][0] + per_sweep[0] * (sweeps - 10))
-    anneal_device_ms = short[10][1] + per_sweep[1] * (sweeps - 10)
+    # the anneal's launches and device ms, the whole call profiled (15a)
+    launches, anneal_device_ms = profiled_launches(
+        lambda: real_solve(anneal["model"], **anneal["kw"]))
     best = int(np.argmin(scores))
     rel64 = [abs(s - r) / r for s, r in zip(scores, MARKET_F64_VAL_MSE)]
     rel_rec = abs(scores[best] - MARKET_RECORD_MSE) / MARKET_RECORD_MSE
@@ -3856,6 +3977,8 @@ def run_market_search(device, smi: str) -> dict:
                     "degree_search": t4 - t3, "val_scoring": t5 - t4},
         "anneal_ms": anneal["ms"], "anneal_launches": launches,
         "anneal_device_ms": anneal_device_ms,
+        "s1_launches": paths["market_search"]["anneal_blocked"],
+        "kernel_sweep_pct": share,
         "val_mse": scores.tolist(), "val_comp_r2": comp_r2.tolist(),
         "rel_vs_jax_f64": rel64, "best_rel_vs_record": rel_rec,
         "best_comp_r2_gap": gap_r2,
@@ -3867,6 +3990,7 @@ def run_market_search(device, smi: str) -> dict:
         **{f"{k}_s": f"{v:.3f}" for k, v in out["seconds"].items()},
         anneal_ms=f"{anneal['ms']:.1f}", anneal_launches=launches,
         anneal_device_ms=f"{anneal_device_ms:.1f}",
+        s1_launches=out["s1_launches"], kernel_sweep_pct=share,
         degree_counts=out["degree_counts"],
         val_mse="[" + ", ".join(f"{v:.11f}" for v in scores) + "]",
         rel_vs_jax_f64=f"{max(rel64):.3e}", bar=MARKET_MSE_RTOL,
@@ -3876,6 +4000,8 @@ def run_market_search(device, smi: str) -> dict:
         card=f"'{smi}'")
     if not gram_devices or set(gram_devices) != {device.type}:
         raise AssertionError(f"Gram statistics on {set(gram_devices)}")
+    if share != 100.0:
+        raise AssertionError(f"{share}% of the market search's sweeps in S1")
     if any(d != 0 for row in degrees for d in row):
         raise AssertionError(f"degrees {out['degree_counts']} != JAX's "
                              "(all 0)")
@@ -4601,15 +4727,17 @@ def main() -> int:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, tf32="off")
 
-    start = time.perf_counter()
-    _cuda_build.load_library()
-    ptxas = _cuda_build.ptxas_log_path().read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = [m for m in re.findall(r"(\d+) bytes spill stores", ptxas)
-              if m != "0"]
-    log("build", seconds=f"{time.perf_counter() - start:.2f}",
-        library=_cuda_build.library_path().name, kernels=len(regs),
-        max_registers=max(regs), kernels_spilling=len(spills))
+    for group, load in (("kernels", _cuda_build.load_library),
+                        ("anneal", _cuda_build.load_anneal_library)):
+        start = time.perf_counter()
+        load()
+        ptxas = _cuda_build.ptxas_log_path(group).read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = [m for m in re.findall(r"(\d+) bytes spill stores", ptxas)
+                  if m != "0"]
+        log("build", seconds=f"{time.perf_counter() - start:.2f}",
+            library=_cuda_build.library_path(group).name, kernels=len(regs),
+            max_registers=max(regs), kernels_spilling=len(spills))
 
     errs = {"fused_dw_fwd": check_kernel(device)}
     errs["fused_dw_fwd"] = max(errs["fused_dw_fwd"],
@@ -4657,12 +4785,13 @@ def main() -> int:
     exchange_table, timed_err = time_exchange(device, smi)
     exchange_err = max(exchange_err, timed_err)
     anneal_ms = check_annealers(device, smi)
-    search = run_structure_search(device, smi)
+    s1_err, s1_table = check_blocked_kernel(device, smi)
+    search = run_structure_search(device, paths, smi)
     with tempfile.TemporaryDirectory() as tmp:
         model_file, flagship = run_flagship(device, Path(tmp), paths, smi)
         int8 = run_int8_serving(device, model_file,
                                 flagship["test_accuracy"], paths, smi)
-        market = {"search": run_market_search(device, smi),
+        market = {"search": run_market_search(device, paths, smi),
                   "harness": run_harness(device, paths, smi)}
         multi = run_multi_device(device, model_file, paths, step_ms, smi)
 
@@ -4824,9 +4953,28 @@ def main() -> int:
               "one exchange = 8 launches",
         "h": {**th, "bound_us": th["bound_ms"] * 1e3},
     })
+    by_path = {p: c["anneal_blocked"] for p, c in paths.items()}
+    t = s1_table["digits_layer0"]
+    kernels.append({
+        "name": "anneal_blocked",
+        "route": "cuda",
+        "source": "qkan_implementation_tpu_torch/csrc/anneal_blocked.cu",
+        "replaces": "qkan_implementation_tpu/anneal/sa.py:428",
+        "launches": sum(by_path.values()),
+        "launches_by_path": {p: n for p, n in by_path.items() if n},
+        "max_abs_err": s1_err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "device_us", "us_per_sweep",
+                             "device_us_per_sweep")},
+        "bound_us": t["bound_ms"] * 1e3,
+        "library_ms": None,
+        "at": f"one chunk of {t['sweeps']} sweeps, bs {t['bs']}, nb "
+              f"{t['nb']}, {t['reads']} reads, f32: digits-search layer 0",
+        "at_shapes": s1_table,
+    })
     for name in [*sources, "fused_bwd_partial_sum", "fused_step",
                  *M3_KERNELS, "m3_dm_sum", "exchange_ucry",
-                 "exchange_h"]:
+                 "exchange_h", "anneal_blocked"]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "

@@ -6,14 +6,18 @@ CPU), local fields maintained incrementally, sequential-variable
 Metropolis sweeps under a geometric temperature schedule.  The JAX
 package's ``lax.scan`` / ``fori_loop`` become Python loops over torch ops
 on the state's device, so a sweep costs a handful of kernel launches per
-sequential step (one step per variable; one per within-block variable on
-block-diagonal QUBOs).
+sequential step (one step per variable), except on block-diagonal QUBOs:
+there a CUDA state runs a chunk of sweeps in one launch of
+``csrc/anneal_blocked.cu`` (``blocked_sweeps``), a CPU state the same
+steps as torch ops (``_blocked_sweeps``, one step per within-block
+variable).
 
 Random numbers: one ``torch.Generator`` on the state's device, seeded
 from ``seed``; the initial state is one draw, and each sweep draws all
-its uniforms at once ([variables, reads]), consumed in variable order.
-The streams differ from JAX's, so the port is held to energies, not
-samples.  Acceptance ``u < exp(-beta dE)`` is evaluated as
+its uniforms at once ([variables, reads]), consumed in variable order;
+the block-diagonal kernel draws a chunk of sweeps' uniforms at once
+(``_sweep_chunk``).  The streams differ from JAX's, so the port is held
+to energies, not samples.  Acceptance ``u < exp(-beta dE)`` is evaluated as
 ``dE < -log(u) / beta`` on a threshold computed once a sweep: the same
 Metropolis rule (``dE <= 0`` always accepts, as ``-log(u) >= 0``) in
 fewer launches a step.
@@ -32,14 +36,23 @@ about n_slots times the launches of one slot.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from qkan_implementation_tpu_torch.anneal.qubo import QuboModel
-from qkan_implementation_tpu_torch.ops._cuda_build import count_launches
+from qkan_implementation_tpu_torch.ops._cuda_build import (
+    count_launches,
+    load_anneal_library,
+    raise_on_error,
+)
 from qkan_implementation_tpu_torch.parallel.collectives import ppermute
 from qkan_implementation_tpu_torch.utils import profiling
-from qkan_implementation_tpu_torch.utils.platform import resolve_device
+from qkan_implementation_tpu_torch.utils.platform import (
+    resolve_device,
+    tensor_device_type as _device_of,
+)
 from qkan_implementation_tpu_torch.utils.profiling import span
 
 def default_beta_range(model: QuboModel) -> tuple[float, float]:
@@ -287,7 +300,9 @@ def simulated_annealing(
     size (verified; falls back to the dense kernel otherwise), variables
     in different blocks flip simultaneously -- a sweep is block_size
     sequential steps instead of n, the latency win for the
-    per-function-independent degree QUBO.
+    per-function-independent degree QUBO.  On the card its sweeps run in
+    ``csrc/anneal_blocked.cu``, a chunk of them a launch, counted in
+    ``simulated_annealing.kernel_sweeps``.
 
     ``sweep_block``: delayed-update block size for the dense path (see
     ``_anneal_kernel_delayed``); the chain is block-size-invariant, so this
@@ -331,6 +346,9 @@ def simulated_annealing(
     return _to_host(model, samples[:, :n_orig], energies)
 
 
+simulated_annealing.kernel_sweeps = 0
+
+
 def _anneal_kernel_blocked(h, J_blocks, betas, gen, num_reads: int,
                            num_sweeps: int):
     """SA for block-diagonal QUBOs: one variable per block flips per step.
@@ -338,29 +356,104 @@ def _anneal_kernel_blocked(h, J_blocks, betas, gen, num_reads: int,
     ``h``: [nb, bs]; ``J_blocks``: [nb, bs, bs] (symmetric, zero diagonal).
     Blocks don't interact, so a sweep is ``bs`` sequential steps instead of
     ``nb * bs``.  State and fields [bs, R, nb]: the step's variable is one
-    contiguous [R, nb] slab.  Returns (samples [R, nb * bs] block-major,
-    energies [R] without the offset), tensors on h's device.
+    contiguous [R, nb] slab.  The sweeps run in chunks (``_sweep_chunk``):
+    one draw of the chunk's uniforms, then ``blocked_sweeps``.  Returns
+    (samples [R, nb * bs] block-major, energies [R] without the offset),
+    tensors on h's device.
     """
     nb, bs = h.shape
     shape = (bs, num_reads, nb)
     s = _bernoulli_half(gen, shape, h)
     # f[i, r, b] = h[b, i] + sum_j J_blocks[b, i, j] s[j, r, b]
-    f = h.T[:, None, :] + torch.einsum("bij,jrb->irb", J_blocks, s)
-    # Jrows[i][j, b] = J_blocks[b, i, j]: the field update rows per variable
-    Jrows = J_blocks.permute(1, 2, 0)[:, :, None, :]  # [bs(i), bs(j), 1, nb]
-    for t in range(num_sweeps):
-        thr = _thresholds(_uniform(gen, shape, h), betas[t])
-        for i in range(bs):
-            sg = torch.rsub(s[i], 1.0, alpha=2.0)
-            delta = torch.where(sg * f[i] < thr[i], sg, 0.0)
-            s[i].add_(delta)
-            f.addcmul_(Jrows[i], delta[None])
+    f = (h.T[:, None, :]
+         + torch.einsum("bij,jrb->irb", J_blocks, s)).contiguous()
+    # the schedule on the state's device, uploaded once
+    beta_t = torch.tensor(betas, dtype=h.dtype).to(h.device)
+    done = 0
+    while done < num_sweeps:
+        k = _sweep_chunk(shape, h.dtype, num_sweeps - done)
+        blocked_sweeps(s, f, _uniform(gen, (k, *shape), h),
+                       beta_t[done:done + k], J_blocks)
+        done += k
     energies = torch.einsum("irb,bi->r", s, h) + 0.5 * torch.einsum(
         "irb,bij,jrb->r", s, J_blocks, s
     )
     # back to flat variable order: block-major [nb, bs]
     samples = s.permute(1, 2, 0).reshape(num_reads, nb * bs)
     return samples, energies
+
+
+_CHUNK_BYTES = 64 << 20  # the uniforms of one chunk of sweeps
+
+
+def _sweep_chunk(shape, dtype, left: int) -> int:
+    """Sweeps in the next chunk of the block-diagonal anneal: the most whose
+    uniforms ([k, *shape] in ``dtype``) fit 64 MiB, at least 1, at most
+    ``left``.  A function of the shape and dtype alone."""
+    per_sweep = dtype.itemsize * math.prod(shape)
+    return max(1, min(left, _CHUNK_BYTES // per_sweep))
+
+
+def _blocked_sweeps(s, f, u, betas, J_blocks):
+    """Plain version of ``blocked_sweeps``: the torch ops, one step (a
+    handful of launches) per within-block variable of each sweep."""
+    Jrows = J_blocks.permute(1, 2, 0)[:, :, None, :]  # [bs(i), bs(j), 1, nb]
+    # a Python beta: torch divides by a scalar as the kernel does, a
+    # product with the reciprocal rounded in the state's dtype
+    for t, beta in enumerate(betas.tolist()):
+        thr = _thresholds(u[t], beta)
+        for i in range(s.shape[0]):
+            sg = torch.rsub(s[i], 1.0, alpha=2.0)
+            delta = torch.where(sg * f[i] < thr[i], sg, 0.0)
+            s[i].add_(delta)
+            f.addcmul_(Jrows[i], delta[None])
+
+
+def blocked_sweeps(s, f, u, betas, J_blocks):
+    """k sweeps of the block-diagonal Metropolis rule, in place on the
+    state ``s`` and local fields ``f`` [bs, R, nb], consuming the uniforms
+    ``u`` [k, bs, R, nb] (sweep t, variable i of every block) under the
+    schedule ``betas`` [k] (a tensor in s's dtype), with the couplings
+    ``J_blocks`` [nb, bs, bs].
+
+    A CPU state runs the plain version (``_blocked_sweeps``); a CUDA state
+    launches ``csrc/anneal_blocked.cu`` once (float32 or float64) or
+    raises.  Counts ``blocked_sweeps.launches`` and
+    ``simulated_annealing.kernel_sweeps`` (k) a launch."""
+    if _device_of(s) == "cpu":
+        _blocked_sweeps(s, f, u, betas, J_blocks)
+        return
+    name = "qkan_anneal_blocked_sweeps"
+    bs, reads, nb = s.shape
+    k = u.shape[0]
+    want = {"s": (s, (bs, reads, nb)), "f": (f, (bs, reads, nb)),
+            "u": (u, (k, bs, reads, nb)), "betas": (betas, (k,)),
+            "J_blocks": (J_blocks, (nb, bs, bs))}
+    if s.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: state in {s.dtype}; float32 or float64")
+    for arg, (t, shape) in want.items():
+        if t.device != s.device or t.dtype != s.dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype} on {t.device}, the "
+                             f"state {s.dtype} on {s.device}")
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous {shape}, got "
+                             f"{tuple(t.shape)}")
+    if k == 0 or s.numel() == 0:
+        return
+    lib = load_anneal_library()
+    with torch.cuda.device(s.device):
+        err = lib.qkan_anneal_blocked_sweeps(
+            s.data_ptr(), f.data_ptr(), u.data_ptr(), betas.data_ptr(),
+            J_blocks.data_ptr(), k, bs, reads, nb,
+            int(s.dtype == torch.float64),
+            torch._C._cuda_getCurrentRawStream(s.get_device()),
+        )
+    raise_on_error(lib, err, name)
+    count_launches(blocked_sweeps, "launches")
+    count_launches(simulated_annealing, "kernel_sweeps", k)
+
+
+blocked_sweeps.launches = 0
 
 
 def _block_diagonal_J(model: QuboModel, block_size: int):

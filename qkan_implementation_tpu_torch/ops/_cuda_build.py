@@ -1,19 +1,23 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 The sources are the package's own ``csrc/*.cu`` (with the shared
-``csrc/*.cuh``), compiled at first use into one shared library with a
-plain C interface.  Each source compiles in its own nvcc process, all
-started together, and one more links them:
+``csrc/*.cuh``), compiled at first use into shared libraries with a
+plain C interface: the annealer's sweeps (``ANNEAL_SOURCES``) into a
+small library of their own (``load_anneal_library``), so a structure
+search waits for that build alone, and every other source into the
+kernels' library (``load_library``).  Each source compiles in its own
+nvcc process, all started together, and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
-         -o _build/libqkan_kernels_<hash>.so *.o
+         -o _build/libqkan_<group>_<hash>.so *.o
 
-The library lands in ``qkan_implementation_tpu_torch/_build/``, named by a
-hash of the sources and flags, so an edited source builds anew and an
-unchanged one is loaded from disk.  ptxas's register and spill report of
-the build is kept beside it (``ptxas_<hash>.log``).  Nothing here runs at
+A library lands in ``qkan_implementation_tpu_torch/_build/``, named by
+its group (``kernels`` or ``anneal``) and a hash of its sources, the
+headers and the flags, so an edited source builds anew and an unchanged
+one is loaded from disk.  ptxas's register and spill report of the build
+is kept beside it (``ptxas_<group>_<hash>.log``).  Nothing here runs at
 import time: the CPU-only test machine has no nvcc and never calls
 ``load_library``.
 """
@@ -39,8 +43,12 @@ COMPILE_FLAGS = (
 )
 LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
+# sources built into the annealer's own library, not the kernels'
+ANNEAL_SOURCES = ("anneal_blocked.cu",)
+
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_anneal_lib: ctypes.CDLL | None = None
 
 
 def find_nvcc() -> str:
@@ -62,28 +70,33 @@ def find_nvcc() -> str:
     )
 
 
-def _sources() -> list[Path]:
-    srcs = sorted(CSRC_DIR.glob("*.cu"))
+def _sources(group: str = "kernels") -> list[Path]:
+    """The ``.cu`` files of a library: ``ANNEAL_SOURCES`` for "anneal",
+    every other one for "kernels"."""
+    if group == "anneal":
+        srcs = [CSRC_DIR / name for name in ANNEAL_SOURCES]
+    else:
+        srcs = [s for s in sorted(CSRC_DIR.glob("*.cu"))
+                if s.name not in ANNEAL_SOURCES]
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     return srcs
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(group: str = "kernels") -> Path:
+    """Where the library for the group's current sources and flags lives."""
     h = hashlib.sha256()
-    for src in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")]):
+    for src in sorted([*_sources(group), *CSRC_DIR.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    return BUILD_DIR / f"libqkan_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libqkan_{group}_{h.hexdigest()[:16]}.so"
 
 
-def ptxas_log_path() -> Path:
+def ptxas_log_path(group: str = "kernels") -> Path:
     """ptxas's report (registers, shared memory, spills) of the build."""
-    return library_path().with_name(
-        library_path().stem.replace("libqkan_kernels", "ptxas") + ".log"
-    )
+    lib = library_path(group)
+    return lib.with_name(lib.stem.replace("libqkan_", "ptxas_") + ".log")
 
 
 def _run_all(cmds: list[list[str]]) -> list[str]:
@@ -102,24 +115,24 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return [out + err for out, err in outs]
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` unless the library is already on disk."""
-    out = library_path()
+def build(group: str = "kernels") -> Path:
+    """Compile the group's sources unless its library is already on disk."""
+    out = library_path(group)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources(group)]
         logs = _run_all([
             [nvcc, *COMPILE_FLAGS, "-o", str(o), str(src)]
-            for src, o in zip(_sources(), objs)
+            for src, o in zip(_sources(group), objs)
         ])
         # link under a temporary name, then rename: a concurrent process
         # never loads a half-written library
         lib_tmp = Path(tmp) / out.name
         _run_all([[nvcc, *LINK_FLAGS, "-o", str(lib_tmp), *map(str, objs)]])
-        ptxas_log_path().write_text("".join(logs))
+        ptxas_log_path(group).write_text("".join(logs))
         os.replace(lib_tmp, out)
     return out
 
@@ -231,6 +244,24 @@ def load_library() -> ctypes.CDLL:
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def load_anneal_library() -> ctypes.CDLL:
+    """Build if needed, load once per process, and declare the C entries of
+    the annealer's library (``csrc/anneal_blocked.cu``)."""
+    global _anneal_lib
+    with _lock:
+        if _anneal_lib is None:
+            lib = ctypes.CDLL(str(build("anneal")))
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.qkan_anneal_blocked_sweeps.argtypes = [
+                p, p, p, p, p, i, i, ll, i, i, p,
+            ]
+            lib.qkan_anneal_blocked_sweeps.restype = i
+            lib.qkan_cuda_error_string.argtypes = [i]
+            lib.qkan_cuda_error_string.restype = ctypes.c_char_p
+            _anneal_lib = lib
+    return _anneal_lib
 
 
 def raise_on_error(lib: ctypes.CDLL, err: int, name: str) -> None:

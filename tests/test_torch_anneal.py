@@ -293,3 +293,99 @@ def test_unported_and_invalid_arguments_raise():
         with pytest.raises(ValueError, match="not in mesh axes"):
             fn(model, mesh)
     assert set(t_anneal.__all__) == set(jax_anneal.__all__)
+
+
+def _blocked_state(bs, nb, reads, k, seed, dtype=torch.float64):
+    """A block-diagonal anneal's state, fields, couplings, uniforms and
+    schedule, from numpy: (s, f, u, betas, J_blocks), with fields
+    h + J s as the anneal starts them."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(nb, bs, bs))
+    J = (a + a.transpose(0, 2, 1)) / 2
+    J[:, np.arange(bs), np.arange(bs)] = 0.0
+    h = rng.normal(size=(nb, bs))
+    s = (rng.uniform(size=(bs, reads, nb)) < 0.5).astype(float)
+    f = h.T[:, None, :] + np.einsum("bij,jrb->irb", J, s)
+    u = rng.uniform(size=(k, bs, reads, nb))
+    betas = np.geomspace(0.1, 10.0, k)
+    return tuple(torch.as_tensor(v, dtype=dtype)
+                 for v in (s, f, u, betas, J))
+
+
+@pytest.mark.parametrize("bs", [1, 4, 6])
+def test_blocked_sweeps_chunk_is_a_schedule(bs):
+    """The plain block-diagonal sweeps give the same state and fields
+    whether a chunk of k sweeps' uniforms is consumed in one call or in k
+    calls of one sweep (float64)."""
+    k = 7
+    s, f, u, betas, J = _blocked_state(bs, 5, 9, k, seed=bs)
+    s1, f1 = s.clone(), f.clone()
+    t_sa._blocked_sweeps(s1, f1, u, betas, J)
+    s2, f2 = s.clone(), f.clone()
+    for t in range(k):
+        t_sa._blocked_sweeps(s2, f2, u[t:t + 1], betas[t:t + 1], J)
+    torch.testing.assert_close(s1, s2, rtol=0, atol=0)
+    torch.testing.assert_close(f1, f2, rtol=0, atol=0)
+    assert not torch.equal(s1, s)  # the chain moved
+    # on the CPU the wrapper runs the plain version and counts no launch
+    launches = t_sa.blocked_sweeps.launches
+    swept = t_sa.simulated_annealing.kernel_sweeps
+    s3, f3 = s.clone(), f.clone()
+    t_sa.blocked_sweeps(s3, f3, u, betas, J)
+    torch.testing.assert_close(s3, s1, rtol=0, atol=0)
+    torch.testing.assert_close(f3, f1, rtol=0, atol=0)
+    assert t_sa.blocked_sweeps.launches == launches
+    assert t_sa.simulated_annealing.kernel_sweeps == swept
+
+
+def test_sweep_chunk_rule_is_shape_and_dtype_alone():
+    """64 MiB of uniforms a chunk, at least one sweep, at most the sweeps
+    left: the same answer for the same shape and dtype, wherever the
+    state lies."""
+    f32, f64 = torch.float32, torch.float64
+    digits0, market = (6, 1000, 32), (4, 1000, 79)
+    assert t_sa._sweep_chunk(digits0, f32, 1000) == 87
+    assert t_sa._sweep_chunk(market, f32, 1000) == 53
+    assert t_sa._sweep_chunk(market, f64, 1000) == 26
+    assert t_sa._sweep_chunk(digits0, f32, 30) == 30  # the last, short
+    assert t_sa._sweep_chunk((17, 10**6, 79), f64, 1000) == 1
+    for shape in (digits0, market, (1, 1, 1)):
+        for dtype in (f32, f64):
+            per = dtype.itemsize * int(np.prod(shape))
+            assert t_sa._sweep_chunk(shape, dtype, 10**9) == max(
+                1, (64 << 20) // per)
+    # the anneal consumes its sweeps in those chunks: 1000 = 11 x 87 + 43
+    left, sizes = 1000, []
+    while left:
+        k = t_sa._sweep_chunk(digits0, f32, left)
+        sizes.append(k)
+        left -= k
+    assert sizes == [87] * 11 + [43]
+
+
+def test_blocked_sweeps_raise_off_cpu_and_cuda():
+    s, f, u, betas, J = (t.to("meta") for t in _blocked_state(2, 3, 4, 1, 0))
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_sa.blocked_sweeps(s, f, u, betas, J)
+
+
+def test_annealer_builds_as_a_library_of_its_own(tmp_path, monkeypatch):
+    """The sweep kernel's source builds into the annealer's own library:
+    the kernels' library neither compiles it nor changes name with it."""
+    from qkan_implementation_tpu_torch.ops import _cuda_build as cb
+
+    assert [s.name for s in cb._sources("anneal")] == ["anneal_blocked.cu"]
+    kernels = [s.name for s in cb._sources()]
+    assert kernels and "anneal_blocked.cu" not in kernels
+    assert cb.library_path("anneal").name.startswith("libqkan_anneal_")
+    assert cb.library_path().name.startswith("libqkan_kernels_")
+    assert cb.ptxas_log_path("anneal").name.startswith("ptxas_anneal_")
+    assert cb.ptxas_log_path().name.startswith("ptxas_kernels_")
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cb.CSRC_DIR, csrc)
+    monkeypatch.setattr(cb, "CSRC_DIR", csrc)
+    before = cb.library_path(), cb.library_path("anneal")
+    with open(csrc / "anneal_blocked.cu", "a") as fh:
+        fh.write("// edited\n")
+    assert cb.library_path() == before[0]
+    assert cb.library_path("anneal") != before[1]

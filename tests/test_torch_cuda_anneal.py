@@ -192,3 +192,126 @@ def test_optimize_and_experiment_on_card(cuda):
             on_cpu["metrics"]["test_accuracy"]
     finally:
         torch.set_default_dtype(old)
+
+
+def _blocked_state(bs, nb, reads, k, seed, dtype, device):
+    """A block-diagonal anneal's (s, f, u, betas, J_blocks) on ``device``:
+    state and couplings from numpy, fields h + J s, the uniforms from the
+    card's generator (torch.rand, as the anneal draws them), a geometric
+    schedule rounded to ``dtype`` that both accepts and rejects."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(nb, bs, bs))
+    J = (a + a.transpose(0, 2, 1)) / 2
+    J[:, np.arange(bs), np.arange(bs)] = 0.0
+    h = rng.normal(size=(nb, bs))
+    s = (rng.uniform(size=(bs, reads, nb)) < 0.5).astype(float)
+    f = h.T[:, None, :] + np.einsum("bij,jrb->irb", J, s)
+    s, f, J = (torch.as_tensor(v, dtype=dtype, device=device).contiguous()
+               for v in (s, f, J))
+    gen = sa._generator(seed, device)
+    u = torch.rand((k, bs, reads, nb), generator=gen, dtype=dtype,
+                   device=device)
+    betas = torch.tensor(sa._schedule((0.05, 20.0), k, dtype), dtype=dtype,
+                         device=device)
+    return s, f, u, betas, J
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("reads", [1, 33, 1000])
+@pytest.mark.parametrize("nb", [10, 79])
+@pytest.mark.parametrize("bs", [1, 2, 4, 6, 8, 9, 17])
+def test_blocked_kernel_equals_plain_on_card(cuda, bs, nb, reads, dtype):
+    """The kernel against the plain sweeps on the card, on the same state,
+    uniforms, schedule and couplings: states and fields bit for bit, and
+    one launch for the chunk."""
+    k = 9
+    s, f, u, betas, J = _blocked_state(bs, nb, reads, k, bs * nb + reads,
+                                       dtype, cuda)
+    s0 = s.clone()
+    s_ref, f_ref = s.clone(), f.clone()
+    sa._blocked_sweeps(s_ref, f_ref, u, betas, J)
+    launches = sa.blocked_sweeps.launches
+    swept = sa.simulated_annealing.kernel_sweeps
+    sa.blocked_sweeps(s, f, u, betas, J)
+    torch.cuda.synchronize()
+    assert sa.blocked_sweeps.launches - launches == 1
+    assert sa.simulated_annealing.kernel_sweeps - swept == k
+    assert torch.equal(s, s_ref)
+    assert torch.equal(f, f_ref)
+    if reads * nb >= 1000:
+        # the chunk did flip spins both ways
+        moved = int((s != s0).sum())
+        assert 0 < moved < s.numel()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_blocked_anneal_short_last_chunk_on_card(cuda, dtype, monkeypatch):
+    """A whole anneal in chunks of 4 sweeps (the chunk rule cut to 4), the
+    last chunk short: the kernel's samples and energies equal the plain
+    sweeps' on the card's same uniforms, with one launch a chunk."""
+    bs, nb, reads, sweeps = 6, 32, 100, 10
+    monkeypatch.setattr(sa, "_CHUNK_BYTES",
+                        4 * bs * nb * reads * dtype.itemsize)
+    assert sa._sweep_chunk((bs, reads, nb), dtype, sweeps) == 4
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=(nb, bs, bs))
+    J = torch.as_tensor((a + a.transpose(0, 2, 1)) / 2, dtype=dtype,
+                        device=cuda)
+    J[:, torch.arange(bs), torch.arange(bs)] = 0.0
+    h = torch.as_tensor(rng.normal(size=(nb, bs)), dtype=dtype, device=cuda)
+    betas = sa._schedule((0.05, 20.0), sweeps, dtype)
+    launches = sa.blocked_sweeps.launches
+    got = sa._anneal_kernel_blocked(h, J, betas, sa._generator(3, cuda),
+                                    reads, sweeps)
+    assert sa.blocked_sweeps.launches - launches == 3  # 4 + 4 + 2
+    monkeypatch.setattr(sa, "blocked_sweeps", sa._blocked_sweeps)
+    want = sa._anneal_kernel_blocked(h, J, betas, sa._generator(3, cuda),
+                                     reads, sweeps)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+def _block_diagonal_model(bs, nb, seed):
+    rng = np.random.default_rng(seed)
+    J = np.zeros((nb * bs, nb * bs))
+    for b in range(nb):
+        a = rng.normal(size=(bs, bs))
+        blk = (a + a.T) / 2
+        np.fill_diagonal(blk, 0.0)
+        J[b * bs:(b + 1) * bs, b * bs:(b + 1) * bs] = blk
+    return anneal.QuboModel(h=rng.normal(size=nb * bs), J=J, offset=0.25)
+
+
+@pytest.mark.parametrize("bs,nb", [(4, 79), (6, 32), (17, 10)])
+def test_blocked_anneal_energies_on_card(cuda, bs, nb):
+    """simulated_annealing(block_structure=) on the card: its energies are
+    the samples' (offset included), within 1e-5; every sweep ran in the
+    kernel."""
+    model = _block_diagonal_model(bs, nb, bs)
+    swept = sa.simulated_annealing.kernel_sweeps
+    samples, energies = anneal.simulated_annealing(
+        model, 256, 300, seed=2, block_structure=bs, device=cuda)
+    assert sa.simulated_annealing.kernel_sweeps - swept == 300
+    np.testing.assert_allclose(energies, model.energy(samples), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("functions,scores", [
+    (32, [0.09, 0.0277, 0.0196, 0.0168, 0.0161, 0.0159]),  # digits, bs 6
+    (79, [0.09, 0.0277, 0.0196, 0.0168]),  # market, bs 4
+])
+def test_solve_qubo_on_card_at_the_cells_shapes(cuda, functions, scores):
+    """solve_qubo at the search cells' shapes (1000 reads, 1000 sweeps)
+    gives the blockwise argmin, its sweeps all in the kernel."""
+    scores = np.array(scores)
+    bs = scores.size
+    model = anneal.degree_selection_qubo(scores, functions, 0.001,
+                                         objective="penalized_mse")
+    exact = np.zeros(model.num_variables)
+    exact[int(np.argmin(model.h[:bs]))::bs] = 1.0
+    launches = sa.blocked_sweeps.launches
+    got, _ = anneal.solve_qubo(model, 1000, 1000, seed=11,
+                               one_hot_block_size=bs, device=cuda)
+    np.testing.assert_array_equal(got, exact)
+    per = sa._sweep_chunk((bs, 1000, functions), torch.float32, 1000)
+    assert sa.blocked_sweeps.launches - launches == -(-1000 // per)
