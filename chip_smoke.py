@@ -1,8 +1,9 @@
 """Smoke run of the torch port's FixedKAN serving and training paths, its
-quantum runtime, the fused train step, the batched QKAN layer over M3,
-the mesh-sharded statevector, structure search with the flagship digits
-experiment from raw data, int8 serving, the market-data harness, and the
-multi-device paths with the diagnostics, on one CUDA card.
+quantum runtime, the fused train step and QKANLayer training on it, the
+batched QKAN layer over M3, the mesh-sharded statevector, structure
+search with the flagship digits experiment from raw data, int8 serving,
+the market-data harness, and the multi-device paths with the diagnostics,
+on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -145,7 +146,17 @@ Phases, each reported on its own lines:
       time of each of the three by kernel, from ``torch.profiler`` over
       10 calls, K5's split into the step kernel, the dW pass and the loss
       sum; the dW pass over the headline step's workspace (256 partials,
-      K5's own layout) as in phase 6.
+      K5's own layout) as in phase 6;
+   d. QKANLayer training at the benchmark cell qkan-layer-16x16-d7's
+      shape (2^24 rows x uniform in [-1, 1)^16, y normal, batches of
+      2^22, weights [8, 256] uniform in [-1, 1)): K5 at x [4194304, 16],
+      dp1 8, T 16, 'mse', no tanh (264 persistent row blocks of 15,936
+      rows, the last one ragged) against its plain version on the same
+      inputs, twice with the same bits (dW within the BARS, the loss
+      within rtol 1e-4); then one epoch of ``qkan_layer_train`` with the
+      counts at 0: 4 steps, K5 and the dW pass launched 4 times each,
+      the first step's loss and gradient the bits of the kernel's call
+      above mapped through the trainer's unfold, every loss finite.
 13. the batched QKAN layer over M3 (``experimental.pallas_layer``: K12
    forward, K13 backward with dx, K14 weight-only backward, the dM pass;
    K12, K13 and K14 on the tensor cores where ``m3_tc_plan`` takes the
@@ -391,6 +402,10 @@ from qkan_implementation_tpu_torch.experiments.config import (
 )
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
 from qkan_implementation_tpu_torch.models import fixed_kan as fk_mod
+from qkan_implementation_tpu_torch.models.qkan_layer import (
+    QKANLayerTrainer,
+    qkan_layer_train,
+)
 from qkan_implementation_tpu_torch.models.mlp import (
     MLPConfig,
     init_mlp,
@@ -2124,6 +2139,8 @@ HLR = 1e-7
 HSTEPS = 20
 STEP_RTOL = 1e-4  # the loss, kernel against plain and against float64
 FOLD_BAR = 1e-5   # the fold's out against qkan_layer_forward_batched
+# the benchmark cell qkan-layer-16x16-d7: its rows and batch (phase 12d)
+LAYER_ROWS, LAYER_B = 1 << 24, 1 << 22
 
 
 def headline_inputs(device):
@@ -2418,6 +2435,65 @@ def time_step(device, card: str) -> dict:
     log("time", note="library_ms null for fused_step: no single PyTorch "
         "call computes the train step")
     return table
+
+
+def qlayer_cell_inputs(device):
+    """Phase 12d's rows x [LAYER_ROWS, 16] uniform in [-1, 1), targets y
+    normal, and the layer's weights [8, 256] uniform in [-1, 1), made on
+    the card."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    x = torch.rand(LAYER_ROWS, HN, generator=gen, device=device) * 2 - 1
+    y = torch.randn(LAYER_ROWS, HK, generator=gen, device=device)
+    w = torch.rand(HDEG + 1, HN * HK, generator=gen, device=device) * 2 - 1
+    return x, y, w
+
+
+def run_qlayer_cell(device, paths: dict) -> None:
+    """Phase 12d: K5 at the cell's shape against its plain version, then
+    one epoch of ``qkan_layer_train`` with the counts at 0."""
+    x, y, w = qlayer_cell_inputs(device)
+    trainer = QKANLayerTrainer(w, HN, HK, learning_rate=1e-3)
+    w2 = trainer.fold(trainer.weights)
+    args = (x[:LAYER_B], w2, HDEG + 1, y[:LAYER_B], "mse", False)
+    layout = fl.fused_step_layout(LAYER_B, HN, HDEG + 1, HK)
+    if layout != (True, 15936, 264):
+        raise AssertionError(f"qlayer cell: K5's layout {layout}")
+    loss, dw = kan_train_step_fused(*args)
+    again = kan_train_step_fused(*args)
+    want_loss, want_dw = kan_train_step_fused_reference(*args)
+    torch.cuda.synchronize()
+    where = dict(case="qlayer_cell", x=f"[{LAYER_B},{HN}]",
+                 rows_a_block=layout[1], row_blocks=layout[2])
+    held("fused_step.dw", dw, want_dw, "high", **where)
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    same = torch.equal(loss, again[0]) and torch.equal(dw, again[1])
+    log("kernel", name="fused_step.loss", loss=f"{float(loss):.8e}",
+        rel_err=f"{rel:.3e}", bar=STEP_RTOL, same_bits_twice=same, **where)
+    if not (loss.shape == () and rel <= STEP_RTOL):
+        raise AssertionError(f"qlayer cell: fused_step loss {rel}")
+    if not same:
+        raise AssertionError("qlayer cell: two K5 calls differ")
+    del again, want_loss, want_dw
+
+    steps = LAYER_ROWS // LAYER_B
+    record = trainer.record_steps(1)
+    qkan_layer_train.steps = 0
+    losses, ms = _path(
+        "qkan_layer_train",
+        lambda: qkan_layer_train(trainer, x, y, LAYER_B),
+        {"fused_step": steps, "fused_bwd_partial_sum": steps},
+        paths)
+    same = (torch.equal(record.losses[0], loss)
+            and torch.equal(record.grad, trainer.unfold(dw)))
+    log("step", path="qkan_layer_train", rows=LAYER_ROWS, batch=LAYER_B,
+        steps=qkan_layer_train.steps, ms_per_step=f"{ms / steps:.4f}",
+        losses=" ".join(f"{v:.8e}" for v in losses[0]),
+        first_step_bits_of_k5_call=same)
+    if qkan_layer_train.steps != steps:
+        raise AssertionError(f"qlayer cell: {qkan_layer_train.steps} steps")
+    if not (np.all(np.isfinite(losses)) and same):
+        raise AssertionError(f"qlayer cell: losses {losses}, first step "
+                             f"the kernel's bits: {same}")
 
 
 # -- phase 13: the batched QKAN layer over M3 (K12-K14) ------------------------
@@ -4769,6 +4845,7 @@ def main() -> int:
         errs[name] = max(errs.get(name, 0.0), err)
     headline_ms = run_headline(device, paths)
     step_table = time_step(device, smi)
+    run_qlayer_cell(device, paths)
     pass_table.update(time_passes(pass_cases(device, "k5"), smi))
     m3_errs = check_m3_kernels(device)
     check_m3_batch_bits(device)

@@ -845,15 +845,17 @@ def kan_train_step_fused_reference(
     rounding points (the basis in x's dtype, w2 cast to it), then err, g
     and the loss in f32, and dW = basis^T @ g with the basis widened to
     f32, as the v1 backward takes it.  Returns ``(loss, dw)``: a 0-dim f32
-    tensor and [dp1*in, T] f32."""
+    tensor and [dp1*in, T] f32.  A float64 x (CPU only: the kernel takes
+    f32 and bf16) keeps every step in float64 and returns float64."""
     _check_step_args(x, y, loss, precision)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
     t = torch.tanh(x) if apply_tanh else x
     basis = torch.cat(_cheb_blocks(t, dp1), dim=1)
-    out = _dot_x_dtype(basis, w2.to(basis.dtype)).to(torch.float32)
-    err = out if loss == "sumsq" else out - y.to(torch.float32)
+    out = _dot_x_dtype(basis, w2.to(basis.dtype)).to(acc)
+    err = out if loss == "sumsq" else out - y.to(acc)
     g_scale, loss_scale = _step_scales(x.shape[0], w2.shape[1], loss)
     total = (err * err).sum()
-    dw = basis.to(torch.float32).T @ (g_scale * err)
+    dw = basis.to(acc).T @ (g_scale * err)
     return (total if loss == "sumsq" else loss_scale * total), dw.contiguous()
 
 

@@ -7,8 +7,9 @@ breakdowns with percentages and memory footprint (``LCUStep.py:126-161``);
 ``span`` so it shows on a profiler timeline.
 
 Spans: ``span(name)`` marks a layer boundary of the main path (the
-trainer, the structure search, the annealer, the market trial) on the
-profiler's own clock, the one its kernels and operators are stamped on.
+trainer, the structure search, the annealer, the market trial, the QKAN
+layer's trainer) on the profiler's own clock, the one its kernels and
+operators are stamped on.
 While a ``torch.profiler`` runs it is a ``record_function``; otherwise
 it is one shared ``nullcontext``, so an untraced call pays one check and
 allocates nothing.  ``device_trace`` writes the spans out beside the
@@ -52,6 +53,12 @@ DOPT_SCORE = "qkan.dopt.score"  # the host solves of every degree
 DOPT_QUBO = "qkan.dopt.qubo"
 DOPT_PREDICT = "qkan.dopt.predict"
 METRICS = "qkan.metrics"  # utils.metrics.compute_metrics
+QLAYER_TRAIN = "qkan.qlayer.train"  # models/qkan_layer.qkan_layer_train
+QLAYER_EPOCH = "qkan.qlayer.epoch"
+QLAYER_STEP = "qkan.qlayer.step"
+QLAYER_FUSED_STEP = "qkan.qlayer.fused_step"  # fold, K5, unfold
+QLAYER_ADAM = "qkan.qlayer.adam"  # AdamGroup.step
+QLAYER_EPOCH_END = "qkan.qlayer.epoch_end"  # the epoch's losses to the host
 
 SPANS = (
     TRAIN, TRAIN_EPOCH, TRAIN_STEP, TRAIN_FORWARD, TRAIN_BACKWARD,
@@ -61,6 +68,8 @@ SPANS = (
     ANNEAL_SOLVE, ANNEAL_SWEEPS, ANNEAL_POLISH,
     DOPT_FIT, DOPT_GRAM, DOPT_SCORE, DOPT_QUBO, DOPT_PREDICT,
     METRICS,
+    QLAYER_TRAIN, QLAYER_EPOCH, QLAYER_STEP, QLAYER_FUSED_STEP, QLAYER_ADAM,
+    QLAYER_EPOCH_END,
 )
 
 # nullcontext keeps no state, so one object serves every untraced span,
