@@ -234,7 +234,15 @@ Phases, each reported on its own lines:
       4 with 79; 1000 reads, float32): its state and fields equal to the
       plain version's (``_blocked_sweeps``) on the same inputs bit for
       bit, one launch, spins flipped; its ms, the plain version's and the
-      bound at 32 and 79 blocks;
+      bound at 32 and 79 blocks; then S2, the one-hot polish, energies and
+      pick on the card (``anneal.sa.polish_blocked``, the same source), on
+      the degree QUBO's annealed state at the same shapes: every read's
+      polished bits and the best sample equal to the host route's
+      (``polish_one_hot_blocks``, ``QuboModel.energy``, ``np.argmin``),
+      its energy within 1e-12 of numpy's and 1e-15 of the exact sum, of
+      max(|E|, offset); one card call; its device µs, event ms, the host
+      ms of the card's polish (S2 and the best read's copy) and of the
+      numpy route, and the bytes bound;
    b. ``optimize`` of the recommended [784,32,16,16,10] config on 10k
       digits-784 rows, solver 'anneal' and 'exact': the degrees equal, the
       design matrix, its factor and the anneal state on the card, every
@@ -354,6 +362,7 @@ row blocks.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -558,6 +567,7 @@ COUNTERS = [
     ("exchange_ucry", rdma.ucry_exchange_fused_rdma, "launches"),
     ("exchange_h", rdma.h_exchange_fused_rdma, "launches"),
     ("anneal_blocked", anneal_sa.blocked_sweeps, "launches"),
+    ("anneal_polish", anneal_sa.polish_one_hot_blocks, "card_calls"),
 ]
 
 
@@ -3584,6 +3594,112 @@ def check_blocked_kernel(device, smi: str) -> tuple[float, dict]:
     return worst, table
 
 
+# the polish's energy bars, relative to the larger of |E| and the offset
+# (the degree QUBO's blocks' energies cancel against it): against numpy's
+# sum, whose own rounding reads up to 1e-12 of E at 79 blocks, and against
+# the exact sum (math.fsum)
+POLISH_ENERGY_RTOL = 1e-12
+POLISH_EXACT_RTOL = 1e-15
+
+
+def check_polish_kernel(device, smi: str) -> tuple[float, dict]:
+    """Phase 15a, last: S2 (``polish_blocked`` on the card) against the
+    host route (every read to numpy, ``polish_one_hot_blocks``,
+    ``QuboModel.energy``, ``np.argmin``) on the state 20 sweeps of S1 leave
+    on the degree QUBO of each of ``S1_SHAPES``: every read's polished bits
+    and the best sample bit for bit, its energy within
+    ``POLISH_ENERGY_RTOL`` of the host's and ``POLISH_EXACT_RTOL`` of the
+    exact sum; then S2's device µs, event ms (beside the
+    plain version's on the card), the host ms of the card's polish (S2
+    and the copy of the best read, what ``solve_qubo``'s polish span
+    holds) and of the numpy route it replaces, and the bytes bound.
+    Returns (largest relative gap to the host's energy, the table)."""
+    worst, table = 0.0, {}
+    f32, f64 = torch.float32, torch.float64
+    for i, (name, (bs, nb)) in enumerate(S1_SHAPES.items()):
+        rng = np.random.default_rng(SEED + 31 + i)
+        scores = np.sort(rng.uniform(0.01, 0.1, bs))[::-1].copy()
+        model = degree_selection_qubo(scores, nb, 0.001,
+                                      objective="penalized_mse")
+        J = anneal_sa._block_diagonal_J(model, bs)
+        s0 = anneal_sa._anneal_blocked_state(
+            *anneal_sa._blocked_terms(model, J, f32, device),
+            anneal_sa._schedule(anneal_sa.default_beta_range(model), 20,
+                                f32),
+            anneal_sa._generator(SEED + 31 + i, device), QUBO_READS, 20)
+        h64, J64 = anneal_sa._blocked_terms(model, J, f64, device)
+
+        def numpy_route(state=s0):
+            samples = state.permute(1, 2, 0).reshape(QUBO_READS, -1)
+            polished = anneal_sa.polish_one_hot_blocks(
+                model, samples.cpu().double().numpy(), bs)
+            energies = model.energy(polished)
+            best = int(np.argmin(energies))
+            return polished, polished[best], float(energies[best])
+
+        polished, want, e_want = numpy_route()
+        s_k = s0.clone()
+        before = anneal_sa.polish_one_hot_blocks.card_calls
+        best = anneal_sa.polish_blocked(s_k, h64, J64).cpu().numpy()
+        calls = anneal_sa.polish_one_hot_blocks.card_calls - before
+        same_reads = np.array_equal(
+            s_k.permute(1, 2, 0).reshape(QUBO_READS, -1).cpu().numpy(),
+            polished)
+        same_best = np.array_equal(best[:-1], want)
+        e_got = float(best[-1]) + model.offset
+        on = np.flatnonzero(want)
+        e_exact = math.fsum([*model.h[on], model.offset])  # J's diagonal 0
+        scale = max(abs(e_want), abs(model.offset))
+        gap = abs(e_got - e_want) / scale
+        exact_gap = abs(e_got - e_exact) / scale
+        worst = max(worst, gap)
+        ws, ps = s0.clone(), s0.clone()
+
+        def kern():
+            anneal_sa.polish_blocked(ws, h64, J64)
+
+        def plain():
+            anneal_sa._polish_blocked(ps, h64, J64)
+
+        ms, plain_ms = paired_ms(kern, plain, reps=20, warm=2)
+        kernels = device_per_call(kern)
+        dev = sum(us for _, us in kernels) if kernels else None
+        card_host_ms = float(np.median([host_ms(
+            lambda: anneal_sa.polish_blocked(ws, h64, J64).cpu())
+            for _ in range(10)]))
+        numpy_ms = float(np.median([host_ms(numpy_route)
+                                    for _ in range(3)]))
+        # the state read and written, h and J, the energies written and
+        # read, the best read written; 4 R nb bs^2 float64 operations
+        # (0.14 µs at digits layer 0 on 34 TFLOP/s FP64) lie below it
+        nbytes = (2 * 4 * s0.numel() + 8 * (h64.numel() + J64.numel())
+                  + 2 * 8 * QUBO_READS + 8 * (nb * bs + 1))
+        row = {"bs": bs, "nb": nb, "reads": QUBO_READS,
+               "energy_rel_gap": gap, "exact_rel_gap": exact_gap,
+               "calls": calls, "ms": ms,
+               "plain_ms": plain_ms, "device_us": dev,
+               "kernels": [k for k, _ in kernels],
+               "host_ms": card_host_ms, "numpy_ms": numpy_ms,
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+               "bound_by": "bytes"}
+        table[name] = row
+        log("anneal", check="polish_kernel", shape=name, bs=bs, nb=nb,
+            reads=QUBO_READS, same_reads=same_reads, same_best=same_best,
+            energy_rel_gap=f"{gap:.3e}", bar=POLISH_ENERGY_RTOL,
+            exact_rel_gap=f"{exact_gap:.3e}", exact_bar=POLISH_EXACT_RTOL,
+            calls=calls, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            device_us=f"{dev:.3f}" if dev else None,
+            host_ms=f"{card_host_ms:.4f}", numpy_ms=f"{numpy_ms:.2f}",
+            bound_us=f"{row['bound_ms'] * 1e3:.3f}", card=f"'{smi}'")
+        if not (same_reads and same_best and gap <= POLISH_ENERGY_RTOL
+                and exact_gap <= POLISH_EXACT_RTOL and calls == 1):
+            raise AssertionError(f"polish kernel at {name}: reads "
+                                 f"{same_reads}, best {same_best}, energy "
+                                 f"gaps {gap}, {exact_gap}, {calls} card "
+                                 "calls")
+    return worst, table
+
+
 def layer_inputs_of(kan, x):
     """Each layer's fit input (tanh of its input: consistent_tanh) on the
     card, from the model's own parameters."""
@@ -3616,15 +3732,15 @@ def run_structure_search(device, paths: dict, smi: str) -> dict:
     y = to_one_hot(labels, T)
     cfg = FixedKANConfig.preset("recommended", SHAPE, MAX_DEGREE,
                                 complexity_weight=0.001)
-    real_kernel = anneal_sa._anneal_kernel_blocked
+    real_kernel = anneal_sa._anneal_blocked_state
     state_devices = []
 
     def spy(*args, **kw):
         out = real_kernel(*args, **kw)
-        state_devices.append(out[0].device.type)
+        state_devices.append(out.device.type)
         return out
 
-    anneal_sa._anneal_kernel_blocked = spy
+    anneal_sa._anneal_blocked_state = spy
     try:
         kans = {}
         for solver in ("anneal", "exact"):
@@ -3641,12 +3757,18 @@ def run_structure_search(device, paths: dict, smi: str) -> dict:
                 if share != 100.0:
                     raise AssertionError(f"{share}% of the search's sweeps "
                                          "in S1")
+                # every solve_qubo polished on the card (S2): one a layer
+                polished = read_counts()["anneal_polish"]
+                if polished != len(SHAPE) - 1:
+                    raise AssertionError(f"{polished} polishes on the card "
+                                         f"in {len(SHAPE) - 1} solves")
             log("search", solver=solver, rows=x.shape[0],
                 data=meta["source"], seconds=f"{seconds:.3f}",
                 s1_launches=read_counts()["anneal_blocked"],
+                s2_calls=read_counts()["anneal_polish"],
                 kernel_sweep_pct=share, card=f"'{smi}'")
     finally:
-        anneal_sa._anneal_kernel_blocked = real_kernel
+        anneal_sa._anneal_blocked_state = real_kernel
     if state_devices != [device.type] * (len(SHAPE) - 1):
         raise AssertionError(f"anneal state on {state_devices}")
     out = {"layers": []}
@@ -4036,6 +4158,9 @@ def run_market_search(device, paths: dict, smi: str) -> dict:
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         paths["market_search"] = read_counts()
+        if paths["market_search"]["anneal_polish"] != 1:
+            raise AssertionError("the market search's solve_qubo did not "
+                                 "polish on the card")
         scores, comp_r2 = opt.evaluate_degree(va, vt, weights=vw)
         t5 = time.perf_counter()
     finally:
@@ -4863,6 +4988,7 @@ def main() -> int:
     exchange_err = max(exchange_err, timed_err)
     anneal_ms = check_annealers(device, smi)
     s1_err, s1_table = check_blocked_kernel(device, smi)
+    s2_err, s2_table = check_polish_kernel(device, smi)
     search = run_structure_search(device, paths, smi)
     with tempfile.TemporaryDirectory() as tmp:
         model_file, flagship = run_flagship(device, Path(tmp), paths, smi)
@@ -5049,9 +5175,28 @@ def main() -> int:
               f"{t['nb']}, {t['reads']} reads, f32: digits-search layer 0",
         "at_shapes": s1_table,
     })
+    # S2: one library call (two launches) a polish on the card
+    by_path = {p: c["anneal_polish"] for p, c in paths.items()}
+    t = s2_table["digits_layer0"]
+    kernels.append({
+        "name": "anneal_polish",
+        "route": "cuda",
+        "source": "qkan_implementation_tpu_torch/csrc/anneal_blocked.cu",
+        "replaces": "qkan_implementation_tpu/anneal/sa.py:990 (numpy, host)",
+        "launches": sum(by_path.values()),
+        "launches_by_path": {p: n for p, n in by_path.items() if n},
+        "energy_rel_gap": s2_err,
+        **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "device_us", "host_ms", "numpy_ms")},
+        "bound_us": t["bound_ms"] * 1e3,
+        "library_ms": None,
+        "at": f"bs {t['bs']}, nb {t['nb']}, {t['reads']} reads, f32 state: "
+              "digits-search layer 0",
+        "at_shapes": s2_table,
+    })
     for name in [*sources, "fused_bwd_partial_sum", "fused_step",
                  *M3_KERNELS, "m3_dm_sum", "exchange_ucry",
-                 "exchange_h", "anneal_blocked"]:
+                 "exchange_h", "anneal_blocked", "anneal_polish"]:
         if not any(c[name] for c in paths.values()):
             raise AssertionError(f"{name} was never launched on a main path")
     print(f"train_step_ms {json.dumps(step_ms)} batch={TRAIN_BATCH} "

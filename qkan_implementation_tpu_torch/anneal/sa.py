@@ -10,7 +10,9 @@ sequential step (one step per variable), except on block-diagonal QUBOs:
 there a CUDA state runs a chunk of sweeps in one launch of
 ``csrc/anneal_blocked.cu`` (``blocked_sweeps``), a CPU state the same
 steps as torch ops (``_blocked_sweeps``, one step per within-block
-variable).
+variable).  ``solve_qubo`` on such a QUBO on the card also polishes,
+scores and picks the best read there, in one more library call
+(``polish_blocked``), and copies only that read to the host.
 
 Random numbers: one ``torch.Generator`` on the state's device, seeded
 from ``seed``; the initial state is one draw, and each sweep draws all
@@ -329,12 +331,9 @@ def simulated_annealing(
         else None
     )
     if J_blocks is not None:
-        nb = model.num_variables // block_structure
         samples, energies = _anneal_kernel_blocked(
-            torch.as_tensor(model.h.reshape(nb, block_structure),
-                            dtype=dtype, device=device),
-            torch.as_tensor(J_blocks, dtype=dtype, device=device),
-            betas, gen, num_reads, num_sweeps,
+            *_blocked_terms(model, J_blocks, dtype, device), betas, gen,
+            num_reads, num_sweeps,
         )
         return _to_host(model, samples, energies)
     h_d, J_d, n_orig, sweep_block = _prepare_delayed(
@@ -349,17 +348,25 @@ def simulated_annealing(
 simulated_annealing.kernel_sweeps = 0
 
 
-def _anneal_kernel_blocked(h, J_blocks, betas, gen, num_reads: int,
-                           num_sweeps: int):
+def _blocked_terms(model: QuboModel, J_blocks: np.ndarray, dtype, device):
+    """(h [nb, bs], J_blocks [nb, bs, bs]) of a block-diagonal QUBO as
+    tensors in ``dtype`` on ``device``."""
+    nb, bs = J_blocks.shape[:2]
+    return (torch.as_tensor(model.h.reshape(nb, bs), dtype=dtype,
+                            device=device),
+            torch.as_tensor(J_blocks, dtype=dtype, device=device))
+
+
+def _anneal_blocked_state(h, J_blocks, betas, gen, num_reads: int,
+                          num_sweeps: int) -> torch.Tensor:
     """SA for block-diagonal QUBOs: one variable per block flips per step.
 
     ``h``: [nb, bs]; ``J_blocks``: [nb, bs, bs] (symmetric, zero diagonal).
     Blocks don't interact, so a sweep is ``bs`` sequential steps instead of
     ``nb * bs``.  State and fields [bs, R, nb]: the step's variable is one
     contiguous [R, nb] slab.  The sweeps run in chunks (``_sweep_chunk``):
-    one draw of the chunk's uniforms, then ``blocked_sweeps``.  Returns
-    (samples [R, nb * bs] block-major, energies [R] without the offset),
-    tensors on h's device.
+    one draw of the chunk's uniforms, then ``blocked_sweeps``.  Returns the
+    state [bs, R, nb] on h's device.
     """
     nb, bs = h.shape
     shape = (bs, num_reads, nb)
@@ -375,12 +382,21 @@ def _anneal_kernel_blocked(h, J_blocks, betas, gen, num_reads: int,
         blocked_sweeps(s, f, _uniform(gen, (k, *shape), h),
                        beta_t[done:done + k], J_blocks)
         done += k
+    return s
+
+
+def _anneal_kernel_blocked(h, J_blocks, betas, gen, num_reads: int,
+                           num_sweeps: int):
+    """``_anneal_blocked_state``'s reads as (samples [R, nb * bs]
+    block-major, energies [R] without the offset), tensors on h's
+    device."""
+    s = _anneal_blocked_state(h, J_blocks, betas, gen, num_reads, num_sweeps)
     energies = torch.einsum("irb,bi->r", s, h) + 0.5 * torch.einsum(
         "irb,bij,jrb->r", s, J_blocks, s
     )
     # back to flat variable order: block-major [nb, bs]
-    samples = s.permute(1, 2, 0).reshape(num_reads, nb * bs)
-    return samples, energies
+    nb, bs = h.shape
+    return s.permute(1, 2, 0).reshape(num_reads, nb * bs), energies
 
 
 _CHUNK_BYTES = 64 << 20  # the uniforms of one chunk of sweeps
@@ -884,7 +900,8 @@ def polish_one_hot_blocks(
     model: QuboModel, samples: np.ndarray, block_size: int
 ) -> np.ndarray:
     """Greedy blockwise repair for one-hot-structured QUBOs (numpy, on the
-    host, as in the JAX package).
+    host, as in the JAX package; ``polish_blocked`` is its counterpart on
+    the card for block-diagonal QUBOs, counted in ``.card_calls``).
 
     For each consecutive block of ``block_size`` variables, fix everything
     outside the block and set the single bit minimizing the energy -- the
@@ -906,6 +923,71 @@ def polish_one_hot_blocks(
     return s
 
 
+polish_one_hot_blocks.card_calls = 0
+
+
+def _polish_blocked(s, h, J_blocks):
+    """Plain version of ``polish_blocked``: torch ops in float64, each
+    read's sum over its blocks' energies exact (``math.fsum``)."""
+    bs = s.shape[0]
+    s.zero_()
+    cleared = s.permute(1, 2, 0).double()  # [R, nb, bs]
+    fields = h + torch.einsum("bij,rbj->rbi", J_blocks, cleared)
+    bits = torch.nn.functional.one_hot(fields.argmin(dim=2), bs).double()
+    s.copy_(bits.permute(2, 0, 1))
+    blocks = (bits * h).sum(dim=2) + 0.5 * (
+        bits * torch.einsum("bij,rbj->rbi", J_blocks, bits)).sum(dim=2)
+    energies = torch.tensor([math.fsum(r) for r in blocks.tolist()],
+                            dtype=torch.float64, device=s.device)
+    best = int(energies.argmin())
+    return torch.cat([bits[best].reshape(-1), energies[best:best + 1]])
+
+
+def polish_blocked(s, h, J_blocks):
+    """The one-hot polish of every read of a block-diagonal anneal, its
+    energies and the pick of the best read, on the state's device.
+
+    ``s`` [bs, R, nb] (float32 or float64) is polished in place as
+    ``polish_one_hot_blocks`` polishes each read's blocks (no coupling
+    leaves a block, so every block polishes at once to the host loop's
+    bits); each read is scored from its polished bits with ``h`` [nb, bs]
+    and ``J_blocks`` [nb, bs, bs] in float64, and the first read of least
+    energy picked, as ``np.argmin`` picks.  Returns a float64 tensor [nb *
+    bs + 1]: that read's bits block-major, then its energy without the
+    offset.
+
+    A CPU state runs the plain version (``_polish_blocked``); a CUDA state
+    launches S2 (``csrc/anneal_blocked.cu``) or raises, and counts
+    ``polish_one_hot_blocks.card_calls``."""
+    if _device_of(s) == "cpu":
+        return _polish_blocked(s, h, J_blocks)
+    name = "qkan_anneal_polish_blocked"
+    bs, reads, nb = s.shape
+    if s.dtype not in (torch.float32, torch.float64) or not s.is_contiguous():
+        raise ValueError(f"{name}: state must be contiguous float32 or "
+                         f"float64, got {s.dtype}")
+    for arg, t, shape in (("h", h, (nb, bs)),
+                          ("J_blocks", J_blocks, (nb, bs, bs))):
+        if (t.device != s.device or t.dtype != torch.float64
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{name}: {arg} must be contiguous float64 "
+                             f"{shape} on {s.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    energies = torch.empty(reads, dtype=torch.float64, device=s.device)
+    best = torch.empty(nb * bs + 1, dtype=torch.float64, device=s.device)
+    lib = load_anneal_library()
+    with torch.cuda.device(s.device):
+        err = lib.qkan_anneal_polish_blocked(
+            s.data_ptr(), h.data_ptr(), J_blocks.data_ptr(),
+            energies.data_ptr(), best.data_ptr(), bs, reads, nb,
+            int(s.dtype == torch.float64),
+            torch._C._cuda_getCurrentRawStream(s.get_device()),
+        )
+    raise_on_error(lib, err, name)
+    count_launches(polish_one_hot_blocks, "card_calls")
+    return best
+
+
 def solve_qubo(
     model: QuboModel,
     num_reads: int = 1000,
@@ -918,16 +1000,43 @@ def solve_qubo(
     """Anneal on ``device`` (optionally polish one-hot blocks) and return
     the best sample.
 
+    A block-diagonal QUBO polished on a CUDA device stays on the card:
+    its blocked anneal's state is polished, scored and picked there
+    (``polish_blocked``), and only the best sample and its energy come to
+    the host.  Otherwise every read comes to the host, where
+    ``polish_one_hot_blocks`` and ``QuboModel.energy`` run in numpy.
+
     Counts its calls in ``solve_qubo.calls`` and the sweeps they asked
     for in ``solve_qubo.sweeps``, once a call."""
     count_launches(solve_qubo, "calls")
     count_launches(solve_qubo, "sweeps", num_sweeps)
+    device = resolve_device(device)
     with span(profiling.ANNEAL_SOLVE):
         with span(profiling.ANNEAL_SWEEPS):
-            samples, energies = simulated_annealing(
-                model, num_reads, num_sweeps, beta_range, seed,
-                block_structure=one_hot_block_size, device=device,
-            )
+            J_blocks = (_block_diagonal_J(model, one_hot_block_size)
+                        if device.type == "cuda" else None)
+            if J_blocks is None:
+                samples, energies = simulated_annealing(
+                    model, num_reads, num_sweeps, beta_range, seed,
+                    block_structure=one_hot_block_size, device=device,
+                )
+            else:
+                if beta_range is None:
+                    beta_range = default_beta_range(model)
+                f32 = torch.float32  # simulated_annealing's dtype
+                s = _anneal_blocked_state(
+                    *_blocked_terms(model, J_blocks, f32, device),
+                    _schedule(beta_range, num_sweeps, f32),
+                    _generator(seed, device), num_reads, num_sweeps,
+                )
+                # the span ends with the sweeps, as the host read did
+                torch.cuda.current_stream(device).synchronize()
+        if J_blocks is not None:
+            with span(profiling.ANNEAL_POLISH):
+                best = polish_blocked(
+                    s, *_blocked_terms(model, J_blocks, torch.float64,
+                                       device)).cpu().numpy()
+            return best[:-1], float(best[-1]) + model.offset
         if one_hot_block_size is not None:
             with span(profiling.ANNEAL_POLISH):
                 samples = polish_one_hot_blocks(model, samples,

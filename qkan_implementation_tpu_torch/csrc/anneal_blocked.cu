@@ -1,11 +1,13 @@
-// The block-diagonal annealer's sweeps, a chunk of them in one launch, for
-// Hopper (sm_90a).
+// The block-diagonal annealer on the card, for Hopper (sm_90a): its sweeps,
+// a chunk of them in one launch (S1), and the one-hot polish, the energies
+// and the pick of the best read after them (S2, further down).
 //
-// Replaces no Pallas kernel.  The JAX package runs this loop as one
-// lax.scan that XLA compiles (qkan_implementation_tpu/anneal/sa.py:428
-// _anneal_kernel_blocked); the port ran it as a Python loop of torch ops,
-// about 7 launches for each variable of a one-hot block in every sweep
-// (46 a sweep at block size 6).  This kernel runs k sweeps in one launch.
+// S1: the sweeps.  Replaces no Pallas kernel.  The JAX package runs this
+// loop as one lax.scan that XLA compiles
+// (qkan_implementation_tpu/anneal/sa.py:428 _anneal_kernel_blocked); the
+// port ran it as a Python loop of torch ops, about 7 launches for each
+// variable of a one-hot block in every sweep (46 a sweep at block size 6).
+// This kernel runs k sweeps in one launch.
 //
 // What it computes, for the state s and the local fields f [bs, R, nb],
 // the uniforms u [k, bs, R, nb], the chunk's schedule betas [k] and the
@@ -50,8 +52,8 @@
 // (each thread its own column, coalesced); register templates there
 // spilled.
 //
-// The entry returns the CUDA error of the launch (0 on success), allocates
-// nothing and does not synchronise; it runs on the given stream.  This
+// Each entry returns the CUDA error of its launches (0 on success),
+// allocates nothing and does not synchronise; it runs on the given stream.  This
 // source is a library of its own (ops/_cuda_build.py: ANNEAL_SOURCES), so
 // it carries its own qkan_cuda_error_string.
 
@@ -211,6 +213,173 @@ cudaError_t launch(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// S2: the one-hot polish, the energies and the pick of the best read.
+//
+// Replaces no Pallas kernel.  The JAX package polishes on the host in numpy
+// (qkan_implementation_tpu/anneal/sa.py polish_one_hot_blocks, then
+// QuboModel.energy and np.argmin), and so did the port: on the dense J
+// [n, n], R n^2 float64 work a call, with every read copied to the host.
+//
+// What it computes, for the annealed state s [bs, R, nb] (float32 or
+// float64), the biases h [nb, bs] and the couplings J [nb, bs, bs] (both
+// float64), for every read r and block b, as polish_one_hot_blocks does:
+//
+//     s[i, r, b] = 0                                   for every i < bs
+//     f_i = h[b, i] + sum_j J[b, i, j] s[j, r, b]      for every i < bs
+//     k   = the first i of least f_i                   (np.argmin's order)
+//     s[k, r, b] = 1
+//
+// then each read's energy without the offset from its polished bits,
+// E_r = sum_b (sum_i s_i h[b, i] + 1/2 sum_ij s_i J[b, i, j] s_j), in
+// float64; then out = the bits of the first read of least E_r (np.argmin's
+// order again: a NaN first, else the least, ties to the lower index),
+// block-major (out[b * bs + i]), and that E_r in out[bs * nb].  The host
+// loop polishes the blocks one after another, each seeing the bits the
+// earlier ones set; here no coupling leaves a block, so a block's fields
+// read no bit outside it, and all blocks of all reads polish at once to
+// the same bits.  s keeps the polished bits of every read.
+//
+// What bounds it on an H100: the launches.  The work is the state read and
+// written once (768 KB in float32 at digits-search layer 0: bs 6, nb 32, R
+// 1000), h and J (under 11 KB) and 2 R nb bs^2 float64 multiply-adds (2.3
+// M): well under a microsecond of either; what is left is two launches of
+// a few microseconds and their dependence.  Polish: one warp a read, its
+// lanes over the read's blocks (b = lane, lane + 32, ...), so a warp's
+// loads and stores of s[i, r, :] are coalesced; a lane keeps the block's
+// bits in the state itself (any bs, no register arrays) and reads them
+// back from L1.  A read's energy is the sum of its blocks' energies, which
+// cancel against the offset (the degree QUBO's h is about -10 a bit, its
+// offset +10 a block): a plain sum over 79 blocks reads up to 1e-12 of E
+// off.  So the sum is compensated (Neumaier's, each lane over its blocks
+// in order, then a tree of shuffles merging the lanes' sums and their
+// rounding errors): E within about an ulp of the exact sum, and equal bits
+// give equal energies wherever the read lies.  Pick: one block scans the
+// R energies and reduces over shared memory, then writes the best read's
+// bits.
+
+constexpr int POLISH_THREADS = 256;  // 8 reads a block
+constexpr int PICK_THREADS = 512;
+
+// Does (a, ia) come before (b, ib) in np.argmin's order: a NaN first, then
+// the lesser value, then the lower index?
+__device__ __forceinline__ bool argmin_before(double a, long long ia,
+                                              double b, long long ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na != nb) return na;
+  if (!na && a != b) return a < b;
+  return ia < ib;
+}
+
+// sum + err += v, Neumaier's step: err gathers the rounding errors of sum
+__device__ __forceinline__ void add_compensated(double& sum, double& err,
+                                                double v) {
+  const double t = sum + v;
+  err += fabs(sum) >= fabs(v) ? (sum - t) + v : (v - t) + sum;
+  sum = t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(POLISH_THREADS)
+polish_blocked_kernel(T* __restrict__ s, const double* __restrict__ h,
+                      const double* __restrict__ J,
+                      double* __restrict__ energy, int bs, long long reads,
+                      int nb) {
+  const long long r =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= reads) return;  // the lanes of a warp share r: it leaves whole
+  const long long plane = reads * nb;  // s[i, r, b] at i * plane + r nb + b
+  double sum = 0.0, err = 0.0;
+  for (int b = lane; b < nb; b += 32) {
+    T* sb = s + r * nb + b;
+    const double* hb = h + (long long)b * bs;
+    const double* jb = J + (long long)b * bs * bs;
+    for (int i = 0; i < bs; ++i) sb[i * plane] = T(0);
+    int k = 0;
+    double least = 0.0;
+    for (int i = 0; i < bs; ++i) {
+      double f = hb[i];
+      for (int j = 0; j < bs; ++j) f += jb[i * bs + j] * (double)sb[j * plane];
+      if (i == 0 || argmin_before(f, i, least, k)) {
+        least = f;
+        k = i;
+      }
+    }
+    sb[k * plane] = T(1);
+    double lin = 0.0, quad = 0.0;
+    for (int i = 0; i < bs; ++i) {
+      const double si = (double)sb[i * plane];
+      double row = 0.0;
+      for (int j = 0; j < bs; ++j) {
+        row += jb[i * bs + j] * (double)sb[j * plane];
+      }
+      lin += si * hb[i];
+      quad += si * row;
+    }
+    add_compensated(sum, err, lin + 0.5 * quad);
+  }
+  for (int off = 16; off > 0; off /= 2) {
+    const double other_sum = __shfl_down_sync(0xffffffffu, sum, off);
+    const double other_err = __shfl_down_sync(0xffffffffu, err, off);
+    add_compensated(sum, err, other_sum);
+    err += other_err;
+  }
+  if (lane == 0) energy[r] = sum + err;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(PICK_THREADS)
+pick_best_kernel(const T* __restrict__ s, const double* __restrict__ energy,
+                 double* __restrict__ out, int bs, long long reads, int nb) {
+  __shared__ double least[PICK_THREADS];
+  __shared__ long long at[PICK_THREADS];
+  const int t = threadIdx.x;
+  double e = 0.0;
+  long long idx = -1;
+  for (long long r = t; r < reads; r += PICK_THREADS) {
+    const double v = energy[r];
+    if (idx < 0 || argmin_before(v, r, e, idx)) {
+      e = v;
+      idx = r;
+    }
+  }
+  least[t] = e;
+  at[t] = idx;
+  __syncthreads();
+  for (int half = PICK_THREADS / 2; half > 0; half /= 2) {
+    if (t < half) {
+      const long long o = at[t + half];
+      if (o >= 0 && (at[t] < 0 ||
+                     argmin_before(least[t + half], o, least[t], at[t]))) {
+        least[t] = least[t + half];
+        at[t] = o;
+      }
+    }
+    __syncthreads();
+  }
+  const long long best = at[0];
+  const long long n = (long long)nb * bs;
+  for (long long v = t; v < n; v += PICK_THREADS) {
+    out[v] = (double)s[(v % bs) * reads * nb + best * nb + v / bs];
+  }
+  if (t == 0) out[n] = least[0];
+}
+
+template <typename T>
+cudaError_t launch_polish(T* s, const double* h, const double* J,
+                          double* energy, double* out, int bs,
+                          long long reads, int nb, cudaStream_t st) {
+  const unsigned grid =
+      (unsigned)((reads * 32 + POLISH_THREADS - 1) / POLISH_THREADS);
+  polish_blocked_kernel<T><<<grid, POLISH_THREADS, 0, st>>>(
+      s, h, J, energy, bs, reads, nb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pick_best_kernel<T><<<1, PICK_THREADS, 0, st>>>(s, energy, out, bs, reads,
+                                                  nb);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // s, f: [bs, reads, nb]; u: [k, bs, reads, nb]; betas: [k]; J: [nb, bs,
@@ -227,6 +396,33 @@ extern "C" int qkan_anneal_blocked_sweeps(void* s, void* f, const void* u,
   const Args a{s, f, u, betas, J, k, bs, reads * nb, nb};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(is_f64 ? launch<double>(a, st) : launch<float>(a, st));
+}
+
+// S2.  s: [bs, reads, nb], float32 (is_f64 0) or float64 (1), polished in
+// place; h: [nb, bs] and J: [nb, bs, bs] float64; energy: [reads] float64
+// scratch; out: [nb * bs + 1] float64, the best read's bits block-major,
+// then its energy without the offset.  All contiguous, on the launching
+// card.  Two launches on the given stream (the polish and energies, then
+// the pick); returns the first CUDA error, 0 on success.
+extern "C" int qkan_anneal_polish_blocked(void* s, const void* h,
+                                          const void* J, void* energy,
+                                          void* out, int bs, long long reads,
+                                          int nb, int is_f64, void* stream) {
+  // the polish's grid is a warp a read: reads / 8 blocks
+  if (bs < 1 || reads < 1 || nb < 1 || reads * nb > (1LL << 36) ||
+      reads > (1LL << 33)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const double* hd = static_cast<const double*>(h);
+  const double* Jd = static_cast<const double*>(J);
+  double* e = static_cast<double*>(energy);
+  double* o = static_cast<double*>(out);
+  return (int)(is_f64
+                   ? launch_polish(static_cast<double*>(s), hd, Jd, e, o, bs,
+                                   reads, nb, st)
+                   : launch_polish(static_cast<float*>(s), hd, Jd, e, o, bs,
+                                   reads, nb, st));
 }
 
 // Name of a CUDA error code, for the wrapper's exception message.

@@ -2,11 +2,12 @@
 
 The sources are the package's own ``csrc/*.cu`` (with the shared
 ``csrc/*.cuh``), compiled at first use into shared libraries with a
-plain C interface: the annealer's sweeps (``ANNEAL_SOURCES``) into a
-small library of their own (``load_anneal_library``), so a structure
-search waits for that build alone, and every other source into the
-kernels' library (``load_library``).  Each source compiles in its own
-nvcc process, all started together, and one more links them:
+plain C interface: the block-diagonal annealer's sweeps and polish
+(``ANNEAL_SOURCES``) into a small library of their own
+(``load_anneal_library``), so a structure search waits for that build
+alone, and every other source into the kernels' library
+(``load_library``).  Each source compiles in its own nvcc process, all
+started together, and one more links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu   (each)
@@ -248,7 +249,8 @@ def load_library() -> ctypes.CDLL:
 
 def load_anneal_library() -> ctypes.CDLL:
     """Build if needed, load once per process, and declare the C entries of
-    the annealer's library (``csrc/anneal_blocked.cu``)."""
+    the annealer's library (``csrc/anneal_blocked.cu``: its sweeps and its
+    one-hot polish)."""
     global _anneal_lib
     with _lock:
         if _anneal_lib is None:
@@ -258,6 +260,10 @@ def load_anneal_library() -> ctypes.CDLL:
                 p, p, p, p, p, i, i, ll, i, i, p,
             ]
             lib.qkan_anneal_blocked_sweeps.restype = i
+            lib.qkan_anneal_polish_blocked.argtypes = [
+                p, p, p, p, p, i, ll, i, i, p,
+            ]
+            lib.qkan_anneal_polish_blocked.restype = i
             lib.qkan_cuda_error_string.argtypes = [i]
             lib.qkan_cuda_error_string.restype = ctypes.c_char_p
             _anneal_lib = lib

@@ -45,7 +45,7 @@ OPTIMIZE_SWEEP = "qkan.optimize.sweep"  # every degree's fit and score
 OPTIMIZE_QUBO = "qkan.optimize.qubo"  # degree_selection_qubo
 OPTIMIZE_ASSEMBLE = "qkan.optimize.assemble"  # C, the next layer's input
 ANNEAL_SOLVE = "qkan.anneal.solve_qubo"
-ANNEAL_SWEEPS = "qkan.anneal.sweeps"  # the sweeps and the read that waits
+ANNEAL_SWEEPS = "qkan.anneal.sweeps"  # the sweeps and the wait for them
 ANNEAL_POLISH = "qkan.anneal.polish"  # one-hot polish, energies after it
 DOPT_FIT = "qkan.dopt.fit"  # DegreeOptimizer.fit
 DOPT_GRAM = "qkan.dopt.gram"  # Gram statistics, their copy to the host

@@ -28,6 +28,12 @@ from qkan_implementation_tpu.anneal import expr as jax_expr
 from qkan_implementation_tpu_torch import anneal as t_anneal
 from qkan_implementation_tpu_torch.anneal import expr as t_expr
 from qkan_implementation_tpu_torch.anneal import sa as t_sa
+from polish_cases import (
+    CELL_SHAPES,
+    assert_energy,
+    host_polish_route,
+    polish_case,
+)
 
 CPU = torch.device("cpu")
 
@@ -367,6 +373,56 @@ def test_blocked_sweeps_raise_off_cpu_and_cuda():
     s, f, u, betas, J = (t.to("meta") for t in _blocked_state(2, 3, 4, 1, 0))
     with pytest.raises(ValueError, match="unsupported device"):
         t_sa.blocked_sweeps(s, f, u, betas, J)
+
+
+@pytest.mark.parametrize("bs,nb,reads,degree_qubo", [
+    *[(bs, nb, 1000, True) for bs, nb in CELL_SHAPES],
+    *[(bs, nb, 37, False) for bs in range(1, 9) for nb in (3, 33)],
+])
+def test_plain_polish_equals_host_route(bs, nb, reads, degree_qubo):
+    """The plain version of the card's polish, scores and pick on a
+    block-diagonal anneal's state: every read polished to the host loop's
+    bits, the same best sample, its energy as ``assert_energy`` bars it;
+    on the CPU it counts no card call."""
+    model, s = polish_case(bs, nb, reads, bs * nb + reads, degree_qubo)
+    polished, want, e_want = host_polish_route(model, s, bs)
+    J_blocks = t_sa._block_diagonal_J(model, bs)
+    calls = t_sa.polish_one_hot_blocks.card_calls
+    best = t_sa.polish_blocked(
+        s, *t_sa._blocked_terms(model, J_blocks, torch.float64, CPU))
+    assert t_sa.polish_one_hot_blocks.card_calls == calls
+    assert best.dtype == torch.float64 and best.shape == (nb * bs + 1,)
+    np.testing.assert_array_equal(best[:-1].numpy(), want)
+    assert_energy(model, want, float(best[-1]) + model.offset, e_want)
+    np.testing.assert_array_equal(
+        s.permute(1, 2, 0).reshape(reads, -1).numpy(), polished)
+
+
+def test_solve_qubo_on_cpu_keeps_the_host_polish():
+    """On the CPU a block-diagonal QUBO keeps the host route (every read
+    to numpy, polish, energies, argmin) and counts no card call."""
+    scores = np.array([0.09, 0.0277, 0.0196, 0.0168, 0.0161, 0.0159])
+    model = t_anneal.degree_selection_qubo(scores, 10, 0.001,
+                                           objective="penalized_mse")
+    calls = t_sa.polish_one_hot_blocks.card_calls
+    got, e_got = t_anneal.solve_qubo(model, 64, 100, seed=4,
+                                     one_hot_block_size=6, device="cpu")
+    assert t_sa.polish_one_hot_blocks.card_calls == calls
+    samples, _ = t_anneal.simulated_annealing(model, 64, 100, seed=4,
+                                              block_structure=6, device="cpu")
+    polished = t_anneal.polish_one_hot_blocks(model, samples, 6)
+    energies = model.energy(polished)
+    best = int(np.argmin(energies))
+    np.testing.assert_array_equal(got, polished[best])
+    assert e_got == energies[best]
+
+
+def test_polish_blocked_raises_off_cpu_and_cuda():
+    model, s = polish_case(2, 3, 4, 0, False)
+    terms = t_sa._blocked_terms(model, t_sa._block_diagonal_J(model, 2),
+                                torch.float64, "meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        t_sa.polish_blocked(s.to("meta"), *terms)
 
 
 def test_annealer_builds_as_a_library_of_its_own(tmp_path, monkeypatch):

@@ -17,7 +17,11 @@ the T_0 sums and the other coefficients within 1e-8 max|c| (the split of
 a T_0 sum among identical columns is set by the ridge: 10 eps cond max|c|,
 cond = ||X_d||_F^2 / (ridge * trace(G)/F)); in
 float32 (the card's route, TF32 off): scores within rtol 1e-3 (atol
-1e-3 mean(y^2), for the near-interpolating underdetermined fits).
+1e-3 mean(y^2), for the near-interpolating underdetermined fits).  The
+polish on the card (S2) against the host route on the same state: the
+polished reads and the best sample bit for bit, its energy within 1e-15
+of the exact sum and 1e-12 of numpy's, relative to the larger of |E| and
+the offset (``assert_energy``).
 """
 
 import numpy as np
@@ -30,6 +34,12 @@ from qkan_implementation_tpu_torch.data import load_mnist, to_one_hot
 from qkan_implementation_tpu_torch.experiments import run_mnist_experiment
 from qkan_implementation_tpu_torch.models import FixedKAN, FixedKANConfig
 from qkan_implementation_tpu_torch.ops.chebyshev import chebyshev_basis
+from polish_cases import (
+    CELL_SHAPES,
+    assert_energy,
+    host_polish_route,
+    polish_case,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -315,3 +325,88 @@ def test_solve_qubo_on_card_at_the_cells_shapes(cuda, functions, scores):
     np.testing.assert_array_equal(got, exact)
     per = sa._sweep_chunk((bs, 1000, functions), torch.float32, 1000)
     assert sa.blocked_sweeps.launches - launches == -(-1000 // per)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs,nb,reads,degree_qubo", [
+    *[(bs, nb, 1000, True) for bs, nb in CELL_SHAPES],
+    *[(bs, nb, reads, False) for bs in range(1, 9)
+      for nb, reads in ((3, 1), (33, 37), (79, 1000))],
+])
+def test_polish_on_card_equals_host_route(cuda, bs, nb, reads, degree_qubo,
+                                          dtype):
+    """S2 against the host route on the same annealed state: every read
+    polished to the host loop's bits, the same best sample bit for bit,
+    its energy as ``assert_energy`` bars it, one card call a call."""
+    model, s = polish_case(bs, nb, reads, 7 * bs + nb + reads, degree_qubo,
+                           dtype, cuda)
+    polished, want, e_want = host_polish_route(model, s, bs)
+    terms = sa._blocked_terms(model, sa._block_diagonal_J(model, bs),
+                              torch.float64, cuda)
+    calls = sa.polish_one_hot_blocks.card_calls
+    best = sa.polish_blocked(s, *terms)
+    torch.cuda.synchronize()
+    assert sa.polish_one_hot_blocks.card_calls - calls == 1
+    assert best.is_cuda and best.dtype == torch.float64
+    best = best.cpu().numpy()
+    np.testing.assert_array_equal(best[:-1], want)
+    assert_energy(model, want, float(best[-1]) + model.offset, e_want)
+    np.testing.assert_array_equal(
+        s.permute(1, 2, 0).reshape(reads, -1).cpu().numpy(), polished)
+    # the plain version on the card gives the same sample
+    _, s2 = polish_case(bs, nb, reads, 7 * bs + nb + reads, degree_qubo,
+                        dtype, cuda)
+    plain = sa._polish_blocked(s2, *terms).cpu().numpy()
+    np.testing.assert_array_equal(plain[:-1], want)
+
+
+def test_polish_on_card_checks_its_arguments(cuda):
+    model, s = polish_case(4, 5, 8, 0, True, torch.float32, cuda)
+    h, J = sa._blocked_terms(model, sa._block_diagonal_J(model, 4),
+                             torch.float64, cuda)
+    with pytest.raises(ValueError, match="h must be contiguous float64"):
+        sa.polish_blocked(s, h.float(), J)
+    with pytest.raises(ValueError, match="J_blocks must be"):
+        sa.polish_blocked(s, h, J[:, :3])
+    with pytest.raises(ValueError, match="state must be"):
+        sa.polish_blocked(s.half(), h, J)
+
+
+@pytest.mark.parametrize("bs,nb,degree_qubo", [
+    *[(bs, nb, True) for bs, nb in CELL_SHAPES], (5, 12, False),
+])
+def test_solve_qubo_polishes_on_card(cuda, bs, nb, degree_qubo):
+    """solve_qubo on a block-diagonal QUBO on the card polishes there, one
+    card call a call, and returns the host route's sample and energy on
+    the same anneal (``simulated_annealing`` on the card, same seed)."""
+    model, _ = polish_case(bs, nb, 1, bs + nb, degree_qubo, torch.float32,
+                           cuda)
+    calls = sa.polish_one_hot_blocks.card_calls
+    got, e_got = anneal.solve_qubo(model, 1000, 300, seed=11,
+                                   one_hot_block_size=bs, device=cuda)
+    assert sa.polish_one_hot_blocks.card_calls - calls == 1
+    samples, _ = anneal.simulated_annealing(model, 1000, 300, seed=11,
+                                            block_structure=bs, device=cuda)
+    polished = anneal.polish_one_hot_blocks(model, samples, bs)
+    energies = model.energy(polished)
+    best = int(np.argmin(energies))
+    np.testing.assert_array_equal(got, polished[best])
+    assert_energy(model, got, e_got, energies[best])
+
+
+def test_solve_qubo_dense_on_card_keeps_the_host_polish(cuda):
+    """Couplings across blocks: solve_qubo keeps the host polish (no card
+    call) and its result is the host route's, energy and all."""
+    model = dense_model(12, 5)
+    assert sa._block_diagonal_J(model, 4) is None
+    calls = sa.polish_one_hot_blocks.card_calls
+    got, e_got = anneal.solve_qubo(model, 64, 200, seed=3,
+                                   one_hot_block_size=4, device=cuda)
+    assert sa.polish_one_hot_blocks.card_calls == calls
+    samples, _ = anneal.simulated_annealing(model, 64, 200, seed=3,
+                                            block_structure=4, device=cuda)
+    polished = anneal.polish_one_hot_blocks(model, samples, 4)
+    energies = model.energy(polished)
+    best = int(np.argmin(energies))
+    np.testing.assert_array_equal(got, polished[best])
+    assert e_got == energies[best]
